@@ -1,0 +1,10 @@
+"""Qwen2-72B [arXiv:2407.10671] — dense GQA kv=8, QKV bias."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b", family="dense",
+    num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8, head_dim=128,
+    d_ff=29568, vocab_size=152064,
+    use_qkv_bias=True, rope_theta=1e6,
+    source="arXiv:2407.10671",
+)

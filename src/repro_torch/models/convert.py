@@ -1,0 +1,71 @@
+"""Carry the reference's weights into the port.
+
+``params_from_reference(cfg, tree)`` takes the reference's parameter tree
+as plain arrays (``unbox(repro.models.model.init(cfg, key))``, converted
+leaf by leaf with ``np.asarray``), whose layer leaves are stacked along
+a leading (L, ...) axis, and returns the port's
+:class:`~repro_torch.models.transformer.LM` holding the same values.
+Every leaf must map onto exactly one parameter of the same shape, and
+every parameter must be covered.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    out: Dict[str, object] = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = val
+    return out
+
+
+def _tensor(x) -> torch.Tensor:
+    # bf16 leaves arrive as ml_dtypes.bfloat16 arrays, which torch cannot
+    # take directly; widening to fp32 first makes the bf16 round trip exact.
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+@torch.no_grad()
+def params_from_reference(cfg: ModelConfig, tree: Mapping,
+                          device: DeviceLike = None) -> tfm.LM:
+    """The port's LM with the reference tree's values, on ``device``."""
+    lm = tfm.LM(cfg, resolve_device(device))
+    params = dict(lm.named_parameters())
+    assigned = set()
+    for name, leaf in _flatten(tree).items():
+        src = _tensor(leaf)
+        if name.startswith("dense_layers."):
+            rest = name[len("dense_layers."):]
+            if src.shape[0] != cfg.num_layers:
+                raise ValueError(f"{name}: leading axis {src.shape[0]} is "
+                                 f"not num_layers={cfg.num_layers}")
+            targets = [(f"dense_layers.{i}.{rest}", src[i])
+                       for i in range(cfg.num_layers)]
+        else:
+            targets = [(name, src)]
+        for tname, value in targets:
+            dst = params.get(tname)
+            if dst is None:
+                raise KeyError(f"reference leaf {name!r} has no counterpart "
+                               f"{tname!r} in the port")
+            if tuple(dst.shape) != tuple(value.shape):
+                raise ValueError(f"{tname}: port shape {tuple(dst.shape)}, "
+                                 f"reference {tuple(value.shape)}")
+            dst.copy_(value.to(dst.dtype))
+            assigned.add(tname)
+    missing = sorted(set(params) - assigned)
+    if missing:
+        raise KeyError(f"port parameters with no reference leaf: {missing}")
+    return lm

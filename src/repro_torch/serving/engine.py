@@ -1,0 +1,185 @@
+"""Continuous-batching serving engine on real models (port of ``repro.serving.engine``).
+
+Fixed decode slots over a preallocated KV cache, policy-ordered
+admission through the shared scheduler registry (FCFS/EDF/PF/DPA/WSL or
+a custom ordering callable), prefill-then-decode with greedy sampling.
+Admission, slot and step semantics are the reference's: every step
+decodes all ``max_batch`` slots (idle ones with token 0 at position 0),
+a request stops after ``max_new_tokens`` or at ``pos >= max_seq - 1``,
+and a prefill overwrites only the first S positions of its slot (stale
+positions beyond S stay and are masked by ``kp <= cur``).  The engine
+runs on CUDA unless the caller passes ``device="cpu"``; the cache is
+updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.api.registry import resolve
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as model_mod
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    """RequestLike over a real token prompt: prompt/output token counts
+    derive from the prompt array and decode budget unless set."""
+
+    rid: int
+    prompt: np.ndarray               # (S,) int32
+    max_new_tokens: int
+    model: str = ""
+    region: str = "local"
+    tier: str = "IW-N"
+    arrival: float = 0.0
+    ttft_deadline: float = math.inf
+    priority: int = 1
+    prompt_tokens: int = 0           # 0 → len(prompt)
+    output_tokens: int = 0           # 0 → max_new_tokens
+    # outputs
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    ttft_step: Optional[int] = None
+    done_step: Optional[int] = None
+
+    def __post_init__(self):
+        if not self.prompt_tokens:
+            self.prompt_tokens = len(self.prompt)
+        if not self.output_tokens:
+            self.output_tokens = self.max_new_tokens
+
+    @property
+    def total_tokens(self) -> int:
+        return self.prompt_tokens + self.output_tokens
+
+    @property
+    def deadline(self):
+        return self.ttft_deadline
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Optional[ServeRequest] = None
+    pos: int = 0                      # next position to write
+    remaining: int = 0
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, max_batch: int = 4,
+                 max_seq: int = 512,
+                 scheduler: Union[str, Callable] = "fcfs",
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.order_fn = resolve("scheduler", scheduler)
+        self.device = resolve_device(device)
+        self.queue: List[ServeRequest] = []
+        self.slots = [_Slot() for _ in range(max_batch)]
+        self.cache = model_mod.init_decode_cache(cfg, max_batch, max_seq,
+                                                 device=self.device)
+        self.step_count = 0
+        self._prefill = functools.partial(model_mod.forward, cfg,
+                                          return_cache=True)
+        self._decode = functools.partial(model_mod.decode_step, cfg)
+
+    # ---------------------------------------------------------------- intake
+    def submit(self, req: ServeRequest) -> None:
+        self.queue.append(req)
+
+    @property
+    def active(self) -> int:
+        return sum(1 for s in self.slots if s.req is not None)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.active > 0
+
+    # ----------------------------------------------------------------- steps
+    def _admit(self) -> None:
+        free = [i for i, s in enumerate(self.slots) if s.req is None]
+        if not free or not self.queue:
+            return
+        self.queue = self.order_fn(self.queue, float(self.step_count))
+        while free and self.queue:
+            req = self.queue.pop(0)
+            slot = free.pop(0)
+            self._prefill_into(slot, req)
+
+    def _prefill_into(self, slot: int, req: ServeRequest) -> None:
+        S = len(req.prompt)
+        if S > self.max_seq:
+            raise ValueError(f"request {req.rid}: prompt of {S} tokens does "
+                             f"not fit max_seq={self.max_seq}")
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                 device=self.device)[None, :]
+        logits, pcache, _ = self._prefill(self.params, {"tokens": tokens})
+        next_tok = int(torch.argmax(logits[0, -1]))
+        _write_slot(self.cache, pcache, slot)
+        st = self.slots[slot]
+        st.req = req
+        st.pos = S
+        st.remaining = req.max_new_tokens - 1
+        req.tokens.append(next_tok)
+        req.ttft_step = self.step_count
+        if st.remaining <= 0:
+            self._finish(slot)
+
+    def _finish(self, slot: int) -> None:
+        st = self.slots[slot]
+        st.req.done_step = self.step_count
+        st.req = None
+        st.pos = 0
+        st.remaining = 0
+
+    def step(self) -> None:
+        """One engine iteration: admit waiting requests, decode one token
+        for every active slot."""
+        self.step_count += 1
+        self._admit()
+        if self.active == 0:
+            return
+        toks = np.zeros((self.max_batch, 1), np.int64)
+        pos = np.zeros((self.max_batch,), np.int32)
+        for i, s in enumerate(self.slots):
+            if s.req is not None:
+                toks[i, 0] = s.req.tokens[-1]
+                pos[i] = s.pos
+        logits, self.cache = self._decode(
+            self.params, torch.from_numpy(toks).to(self.device), self.cache,
+            torch.from_numpy(pos).to(self.device))
+        nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+        for i, s in enumerate(self.slots):
+            if s.req is None:
+                continue
+            s.req.tokens.append(int(nxt[i]))
+            s.pos += 1
+            s.remaining -= 1
+            if s.remaining <= 0 or s.pos >= self.max_seq - 1:
+                self._finish(i)
+
+    def run(self, max_steps: int = 10_000) -> None:
+        while self.has_work and self.step_count < max_steps:
+            self.step()
+
+
+@torch.no_grad()
+def _write_slot(cache: Dict, prefill_cache: Dict, slot: int) -> Dict:
+    """Write a single-request prefill cache into decode-cache slot `slot`.
+
+    Decode leaves are stacked (L, B, W, ...); prefill leaves are
+    (L, 1, S, ...): write at [:, slot, :S] in place, leaving slots
+    beyond S as they were.
+    """
+    for family, leaves in prefill_cache.items():
+        for name, src in leaves.items():
+            dst = cache[family][name]
+            dst[:, slot, :src.shape[2]] = src[:, 0].to(dst.dtype)
+    return cache

@@ -19,3 +19,8 @@ else:
 # Property tests need hypothesis; auto-skip them when it's absent.
 collect_ignore = ([] if settings is not None
                   else ["test_properties.py", "test_scheduling.py"])
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")

@@ -1,0 +1,81 @@
+"""repro_torch stands alone: no jax, no repro, and CUDA unless asked otherwise."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+
+def test_imports_with_jax_and_repro_blocked():
+    """Every module of the port imports with ``jax`` and ``repro`` made
+    unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib, pkgutil, repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "             and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_file_imports_jax_or_repro():
+    """An AST check over every file: the module's top-level package must
+    not be ``jax`` or ``repro`` (``repro_torch`` is its own package)."""
+    files = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    offenders = []
+    for path in files:
+        for name in _imported_modules(ast.parse(path.read_text())):
+            if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                offenders.append(f"{path.relative_to(SRC.parent)}: {name}")
+    assert not offenders, offenders
+    assert len(files) >= 20
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = reduce_for_smoke(get_arch("starcoder2-7b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_decode_cache(cfg, 1, 8)
+    lm = model.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(cfg, lm, max_batch=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke"])
