@@ -264,6 +264,7 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 112: return launch<T, 112>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     case 160: return launch<T, 160>(a, stream);
     case 256: return launch<T, 256>(a, stream);

@@ -443,6 +443,7 @@ cudaError_t dispatch(const Args& a, int dtype, int hd, cudaStream_t st) {
       case 16: return launch_mma<16>(a, st);
       case 32: return launch_mma<32>(a, st);
       case 64: return launch_mma<64>(a, st);
+      case 112: return launch_mma<112>(a, st);
       case 128: return launch_mma<128>(a, st);
       case 160: return launch_mma<160>(a, st);
       case 256: return launch_mma<256>(a, st);
@@ -453,6 +454,7 @@ cudaError_t dispatch(const Args& a, int dtype, int hd, cudaStream_t st) {
     case 16: return launch<float, 16>(a, st);
     case 32: return launch<float, 32>(a, st);
     case 64: return launch<float, 64>(a, st);
+    case 112: return launch<float, 112>(a, st);
     case 128: return launch<float, 128>(a, st);
     case 160: return launch<float, 160>(a, st);
     case 256: return launch<float, 256>(a, st);

@@ -1,4 +1,4 @@
-"""Public attention ops: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
+"""Public kernel ops: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
 Counterpart of ``repro.kernels.ops``.  A CUDA tensor always launches
 the kernel (which raises on what it cannot take); it never falls back
@@ -11,6 +11,7 @@ from __future__ import annotations
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, scale: float,
@@ -26,3 +27,9 @@ def decode_attention(q, k, v, k_pos, cur_pos, *, scale: float,
     """q: (B,H,hd); k/v: (B,Hkv,T,hd); k_pos: (B,T); cur_pos: (B,)."""
     fn = _dec.decode_attention if q.is_cuda else ref.decode_attention_ref
     return fn(q, k, v, k_pos, cur_pos, scale=scale, window=window)
+
+
+def ssd_state_scan(states, decay, s0):
+    """states: (b,c,h,p,n); decay: (b,c,h); s0: (b,h,p,n); all fp32."""
+    fn = _ssd.ssd_state_scan if states.is_cuda else ref.ssd_state_scan_ref
+    return fn(states, decay, s0)

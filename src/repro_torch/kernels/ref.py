@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the attention kernels (the correctness oracles).
+"""Plain PyTorch versions of the kernels (the correctness oracles).
 
-Same signatures and layouts as ``repro.kernels.ref``: fp32 math, the
-finite ``NEG_INF`` mask value (a row whose keys are all masked returns
-mean(V), not 0 or NaN), output in ``q.dtype``.  Inputs may be strided
-views.  ``ops`` runs these for CPU tensors; ``chip_smoke.py`` holds the
-CUDA kernels against them on the card.
+Same signatures and layouts as ``repro.kernels.ref``.  Attention: fp32
+math, the finite ``NEG_INF`` mask value (a row whose keys are all
+masked returns mean(V), not 0 or NaN), output in ``q.dtype``.  Inputs
+may be strided views.  ``ops`` runs these for CPU tensors;
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -49,3 +49,19 @@ def decode_attention_ref(q, k, v, k_pos, cur_pos, *, scale: float,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,bktd->bkgd", w, v.float())
     return o.reshape(B, H, v.shape[-1]).to(q.dtype)
+
+
+def ssd_state_scan_ref(states, decay, s0):
+    """Cross-chunk SSD recurrence, S_i = S_{i-1} * decay_i + states_i.
+
+    states: (b,c,h,p,n) fp32; decay: (b,c,h); s0: (b,h,p,n).  Returns
+    (prev (b,c,h,p,n), the state entering each chunk, and final
+    (b,h,p,n)).  The product and the sum are separate ops (no FMA), which
+    the CUDA kernel repeats bit for bit.
+    """
+    carry = s0
+    prev = []
+    for i in range(states.shape[1]):
+        prev.append(carry)
+        carry = carry * decay[:, i, :, None, None] + states[:, i]
+    return torch.stack(prev, dim=1), carry

@@ -3,9 +3,11 @@
 Drives the continuous-batching :class:`ServingEngine` with a mixed
 IW-F/IW-N request stream (every third request IW-F, TTFT deadlines
 +2/+20 steps after arrival) and a SageServe scheduler (default DPA),
-printing TTFT/E2E step counts.  It serves the full-size architecture on
-CUDA by default; ``--smoke`` selects the reduced variant and
-``--device cpu`` runs on the CPU.  Weights are random, drawn from a
+printing TTFT/E2E step counts.  ``--arch`` takes any dense, SSM or
+hybrid architecture (``starcoder2-7b``, ``mamba2-370m``, ``zamba2-7b``,
+...).  It serves the full-size architecture on CUDA by default;
+``--smoke`` selects the reduced variant and ``--device cpu`` runs on the
+CPU.  Weights are random, drawn from a
 seeded generator.
 """
 from __future__ import annotations

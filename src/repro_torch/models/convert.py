@@ -2,9 +2,12 @@
 
 ``params_from_reference(cfg, tree)`` takes the reference's parameter tree
 as plain arrays (``unbox(repro.models.model.init(cfg, key))``, converted
-leaf by leaf with ``np.asarray``), whose layer leaves are stacked along
-a leading (L, ...) axis, and returns the port's
-:class:`~repro_torch.models.transformer.LM` holding the same values.
+leaf by leaf with ``np.asarray``), whose layer leaves (``dense_layers``,
+or the SSM ``layers``) are stacked along a leading (L, ...) axis, and
+returns the port's :class:`~repro_torch.models.transformer.LM` holding
+the same values: leaf ``layers.mixer.in_proj[i]`` becomes parameter
+``layers.{i}.mixer.in_proj``.  Unstacked leaves, such as the hybrid's
+``shared_attn``, keep their names.
 Every leaf must map onto exactly one parameter of the same shape, and
 every parameter must be covered.
 """
@@ -18,6 +21,9 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
+
+#: reference subtrees whose leaves are stacked over the layers
+STACKED = ("dense_layers.", "layers.")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -46,12 +52,13 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping,
     assigned = set()
     for name, leaf in _flatten(tree).items():
         src = _tensor(leaf)
-        if name.startswith("dense_layers."):
-            rest = name[len("dense_layers."):]
+        stack = next((s for s in STACKED if name.startswith(s)), None)
+        if stack is not None:
+            rest = name[len(stack):]
             if src.shape[0] != cfg.num_layers:
                 raise ValueError(f"{name}: leading axis {src.shape[0]} is "
                                  f"not num_layers={cfg.num_layers}")
-            targets = [(f"dense_layers.{i}.{rest}", src[i])
+            targets = [(f"{stack}{i}.{rest}", src[i])
                        for i in range(cfg.num_layers)]
         else:
             targets = [(name, src)]

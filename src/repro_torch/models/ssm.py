@@ -1,0 +1,278 @@
+"""Mamba2 (SSD, state-space duality) mixer (port of ``repro.models.ssm``).
+
+Prefill runs the chunked SSD algorithm of arXiv:2405.21060: quadratic,
+attention-like products within each chunk (``torch.einsum``) and the
+linear recurrence of chunk states across chunks, which goes through
+``kernels.ops.ssd_state_scan``: the CUDA kernel K3 for CUDA tensors,
+its plain version for CPU ones.  Decode is the O(1) recurrent step over
+a (conv, ssm-state) cache::
+
+    {"conv": (B, CONV_WIDTH - 1, d_inner + 2N) model dtype,
+     "ssm":  (B, H, P, N) fp32}
+
+Shapes: x (B, L, H, P) with H = d_inner / headdim heads; the B and C
+projections are shared across heads (one group, as in Mamba2); state
+size N.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_init_, model_dtype, param
+
+CONV_WIDTH = 4
+
+
+class SSM(nn.Module):
+    """``in_proj`` (d, 2di+2N+H) ordered [z, x, B, C, dt], ``conv_w``
+    (CONV_WIDTH, di+2N), ``conv_b``, ``out_proj`` (di, d) in the model
+    dtype; ``A_log``, ``D``, ``dt_bias`` (H,) and ``gate_norm`` (di,) in
+    fp32."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dt, f32 = model_dtype(cfg), torch.float32
+        d, di, N, H = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
+                       cfg.ssm_nheads)
+        conv_ch = di + 2 * N
+        self.in_proj = param((d, 2 * di + 2 * N + H), dt, device)
+        self.conv_w = param((CONV_WIDTH, conv_ch), dt, device)
+        self.conv_b = param((conv_ch,), dt, device)
+        self.A_log = param((H,), f32, device)
+        self.D = param((H,), f32, device)
+        self.dt_bias = param((H,), f32, device)
+        self.gate_norm = param((di,), f32, device)
+        self.out_proj = param((di, d), dt, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's init: A = -(1..H), dt drawn log-uniform in
+        [0.001, 0.1] and stored as its inverse softplus, conv weights
+        normal * 0.2."""
+        f32, dev = torch.float32, self.A_log.device
+        H = self.A_log.shape[0]
+        dense_init_(self.in_proj, generator)
+        dense_init_(self.out_proj, generator)
+        u = torch.rand((H,), generator=generator, device=dev, dtype=f32)
+        dt_init = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                            + math.log(0.001))
+        self.dt_bias.copy_(dt_init + torch.log(-torch.expm1(-dt_init)))
+        w = torch.randn(self.conv_w.shape, generator=generator, device=dev,
+                        dtype=f32)
+        self.conv_w.copy_(w.to(self.conv_w.dtype) * 0.2)
+        self.conv_b.zero_()
+        self.A_log.copy_(torch.log(torch.arange(1, H + 1, dtype=f32,
+                                                device=dev)))
+        self.D.fill_(1.0)
+        self.gate_norm.fill_(1.0)
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, *, layers: int = 0,
+                   device=None) -> Dict:
+    """Zero cache; with ``layers`` > 0 every leaf gains a leading layer
+    axis (the model's stacked cache)."""
+    di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
+                    cfg.ssm_headdim)
+    lead = (layers,) if layers else ()
+    return {
+        "conv": torch.zeros(lead + (batch, CONV_WIDTH - 1, di + 2 * N),
+                            dtype=model_dtype(cfg), device=device),
+        "ssm": torch.zeros(lead + (batch, H, Pd, N), dtype=torch.float32,
+                           device=device),
+    }
+
+
+# --------------------------------------------------------------------------
+# SSD core
+# --------------------------------------------------------------------------
+
+def _segsum(a):
+    """a: (..., cl, h) -> (..., h, cl, cl) lower-triangular segment sums
+    (-inf above the diagonal)."""
+    cl = a.shape[-2]
+    cs = torch.cumsum(a.movedim(-1, -2), dim=-1)           # (..., h, cl)
+    seg = cs[..., :, None] - cs[..., None, :]              # sum_(j..i]
+    mask = torch.tril(torch.ones(cl, cl, dtype=torch.bool, device=a.device))
+    return seg.masked_fill(~mask, -math.inf)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
+                initial_state: Optional[torch.Tensor] = None):
+    """Chunked SSD.
+
+    x: (b, l, h, p) fp32; dt: (b, l, h) fp32 (post-softplus);
+    A: (h,) fp32 (negative); Bm/Cm: (b, l, n) fp32.
+    Returns y (b, l, h, p), final_state (b, h, p, n).  The cross-chunk
+    recurrence always goes through ``ops.ssd_state_scan``, so CUDA
+    tensors always run K3 (the reference's ``use_kernel`` switch picks
+    between two versions of the same function and has no counterpart).
+    """
+    b, l, h, p = x.shape
+    n = Bm.shape[-1]
+    pad = (-l) % chunk
+    if pad:   # zero-pad the sequence axis (1) to a chunk multiple
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt, Bm, Cm = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, Cm))
+    L = x.shape[1]
+    c = L // chunk
+    xr = x.reshape(b, c, chunk, h, p)
+    dtr = dt.reshape(b, c, chunk, h)
+    Br = Bm.reshape(b, c, chunk, n)
+    Cr = Cm.reshape(b, c, chunk, n)
+
+    dA = dtr * A                                           # (b,c,cl,h)
+    dA_cs = torch.cumsum(dA, dim=2)
+
+    # ---- intra-chunk (quadratic within chunk) -------------------------------
+    Lmat = torch.exp(_segsum(dA))                          # (b,c,h,cl,cl)
+    G = torch.einsum("bczn,bcln->bczl", Cr, Br)            # (b,c,cl_q,cl_k)
+    M = G[:, :, None] * Lmat                               # (b,c,h,z,l)
+    y_diag = torch.einsum("bchzl,bclh,bclhp->bczhp", M, dtr, xr)
+
+    # ---- chunk states -------------------------------------------------------
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (b,c,cl,h)
+    states = torch.einsum("bcln,bclh,bclhp->bchpn",
+                          Br, decay_states * dtr, xr)      # (b,c,h,p,n)
+
+    # ---- inter-chunk recurrence (K3) ----------------------------------------
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])            # (b,c,h)
+    s0 = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+          if initial_state is None else initial_state)
+    prev_states, final = ops.ssd_state_scan(states, chunk_decay, s0)
+
+    # ---- chunk-start contribution -------------------------------------------
+    state_decay = torch.exp(dA_cs)                         # (b,c,cl,h)
+    y_off = torch.einsum("bczn,bchpn,bczh->bczhp", Cr, prev_states,
+                         state_decay)
+
+    y = (y_diag + y_off).reshape(b, L, h, p)[:, :l]
+    return y, final
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+    """One recurrent step.  state: (b,h,p,n); x_t: (b,h,p); dt_t: (b,h);
+    B_t/C_t: (b,n).  Returns (new_state, y_t)."""
+    dA = torch.exp(dt_t * A)                               # (b,h)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt_t, B_t, x_t)
+    new_state = state * dA[:, :, None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", new_state, C_t)
+    return new_state, y
+
+
+# --------------------------------------------------------------------------
+# Full mixer (in_proj -> conv -> SSD -> gate -> out_proj)
+# --------------------------------------------------------------------------
+
+def _split_proj(cfg: ModelConfig, zxbcdt):
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xc = zxbcdt[..., di:di + di + 2 * N]
+    dt = zxbcdt[..., di + di + 2 * N:]
+    return z, xc, dt
+
+
+def _silu(x):
+    """``jax.nn.silu`` op for op: x * 1 / (1 + exp(-x)), each op rounded
+    to x's dtype.  In bf16, ``F.silu``'s single rounding differs from it
+    in about a third of the elements, which over a deep stack moves the
+    logits by several bf16 ulps."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _conv(xp, w, b):
+    """Depthwise conv in xp's dtype: output t sees xp[:, t:t+W].
+    xp: (B, L+W-1, C); w: (W, C)."""
+    W = w.shape[0]
+    L = xp.shape[1] - W + 1
+    out = sum(xp[:, i:i + L, :] * w[i] for i in range(W))
+    return _silu(out + b)
+
+
+def _causal_conv(xc, w, b):
+    """Depthwise causal conv in the input dtype.  xc: (B, L, C); w: (W, C)."""
+    return _conv(F.pad(xc, (0, 0, w.shape[0] - 1, 0)), w, b)
+
+
+def _gated_out(cfg: ModelConfig, params: SSM, y, z, x_conv):
+    y = y + params.D[:, None] * x_conv.reshape(y.shape)
+    yf = y.reshape(*y.shape[:-2], cfg.ssm_d_inner)
+    yf = yf * F.silu(z.float())
+    ms = yf.square().mean(-1, keepdim=True)
+    # the reference's gate-norm eps is 1e-6 whatever cfg.norm_eps says
+    yf = yf * torch.rsqrt(ms + 1e-6) * params.gate_norm
+    return yf.to(model_dtype(cfg)) @ params.out_proj
+
+
+def ssm_forward(params: SSM, x, cfg: ModelConfig,
+                initial_state: Optional[Dict] = None,
+                return_cache: bool = False):
+    """x: (B, L, D) -> (y, cache or None).  Full sequence (prefill)."""
+    Bsz, L, _ = x.shape
+    di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
+                    cfg.ssm_headdim)
+    zxbcdt = x @ params.in_proj
+    z, xc, dtl = _split_proj(cfg, zxbcdt)
+    xc = _causal_conv(xc, params.conv_w, params.conv_b)
+    xs = xc[..., :di].float()
+    Bm = xc[..., di:di + N].float()
+    Cm = xc[..., di + N:].float()
+    dt = F.softplus(dtl.float() + params.dt_bias)
+    A = -torch.exp(params.A_log)
+    y, final = ssd_chunked(
+        xs.reshape(Bsz, L, H, Pd), dt, A, Bm, Cm, cfg.ssm_chunk,
+        initial_state=None if initial_state is None
+        else initial_state["ssm"])
+    out = _gated_out(cfg, params, y, z, xs)
+    if not return_cache:
+        return out, None
+    # conv cache = the last (W-1) *pre-activation* conv inputs, left-padded
+    # with zeros when the prompt is shorter
+    pre = zxbcdt[..., di:di + di + 2 * N]
+    if L >= CONV_WIDTH - 1:
+        conv_cache = pre[:, -(CONV_WIDTH - 1):, :]
+    else:
+        conv_cache = F.pad(pre, (0, 0, CONV_WIDTH - 1 - L, 0))
+    return out, {"conv": conv_cache.to(model_dtype(cfg)), "ssm": final}
+
+
+def ssm_decode(params: SSM, x, cfg: ModelConfig, cache: Dict):
+    """x: (B, 1, D).  Writes the shifted conv window and the new state
+    into ``cache`` in place (the reference builds a new cache) and
+    returns ``(y, cache)``.
+
+    One deliberate difference from the reference: the conv over the
+    window runs the prefill's ops in the model dtype (``_conv``), where
+    the reference's decode computes it in fp32.  In bf16 the reference's
+    two paths round the conv differently; on an H100, over Zamba2-7B's
+    81 layers and 31 decode steps, that accounted for 2.3e-2 of the
+    relative L2 gap between a decode step's logits and a full forward
+    (8.3e-2 with it, 6.0e-2 without), and on the CPU, where nothing
+    else differs, a decode step now continues the prefill exactly.  In
+    fp32 the two agree to rounding.
+    """
+    Bsz = x.shape[0]
+    di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
+                    cfg.ssm_headdim)
+    z, xc_new, dtl = _split_proj(cfg, x @ params.in_proj)     # (B, 1, .)
+    window = torch.cat([cache["conv"], xc_new.to(cache["conv"].dtype)],
+                       dim=1)                                # (B, W, C)
+    conv_out = _conv(window, params.conv_w, params.conv_b)[:, 0].float()
+    xs = conv_out[:, :di]
+    Bm = conv_out[:, di:di + N]
+    Cm = conv_out[:, di + N:]
+    dt = F.softplus(dtl[:, 0].float() + params.dt_bias)
+    A = -torch.exp(params.A_log)
+    new_state, y = ssd_step(cache["ssm"], xs.reshape(Bsz, H, Pd), dt, A,
+                            Bm, Cm)
+    out = _gated_out(cfg, params, y.reshape(Bsz, 1, H, Pd), z,
+                     xs[:, None, :])
+    cache["conv"].copy_(window[:, 1:])
+    cache["ssm"].copy_(new_state)
+    return out, cache

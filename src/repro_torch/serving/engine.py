@@ -6,8 +6,10 @@ a custom ordering callable), prefill-then-decode with greedy sampling.
 Admission, slot and step semantics are the reference's: every step
 decodes all ``max_batch`` slots (idle ones with token 0 at position 0),
 a request stops after ``max_new_tokens`` or at ``pos >= max_seq - 1``,
-and a prefill overwrites only the first S positions of its slot (stale
-positions beyond S stay and are masked by ``kp <= cur``).  The engine
+and a prefill overwrites only the first S positions of its slot's
+attention cache (stale positions beyond S stay and are masked by
+``kp <= cur``) but the whole of its SSM state and conv window, which
+idle decode steps keep advancing.  The engine
 runs on CUDA unless the caller passes ``device="cpu"``; the cache is
 updated in place.
 """
@@ -176,7 +178,8 @@ def _write_slot(cache: Dict, prefill_cache: Dict, slot: int) -> Dict:
 
     Decode leaves are stacked (L, B, W, ...); prefill leaves are
     (L, 1, S, ...): write at [:, slot, :S] in place, leaving slots
-    beyond S as they were.
+    beyond S as they were.  SSM states (L, 1, H, P, N) and conv windows
+    (L, 1, 3, C) span their whole axis 2, so they are replaced whole.
     """
     for family, leaves in prefill_cache.items():
         for name, src in leaves.items():

@@ -6,9 +6,11 @@ one.  The file imports no JAX, so it runs on a machine without it::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: fp32 2e-5 (both sides compute in fp32, no TF32), bf16 3e-2
-(one bf16 ulp of outputs up to 4 in magnitude, both sides accumulating
-in fp32).
+Tolerances: attention fp32 2e-5 (both sides compute in fp32, no TF32),
+bf16 3e-2 (one bf16 ulp of outputs up to 4 in magnitude, both sides
+accumulating in fp32); the SSD state scan (K3) atol 1e-6, the reference
+sweep's, though kernel and plain version round the same two ops and
+agree bit for bit.
 """
 import dataclasses
 
@@ -20,6 +22,7 @@ from repro_torch.configs import get_arch, reduce_for_smoke
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.launch.serve import make_requests
 from repro_torch.models import model
 from repro_torch.serving.engine import ServingEngine
@@ -53,6 +56,7 @@ def close(got, want, dtype):
     (2, 18, 2, 37, 53, 32, 16),        # S != T, windowed
     (1, 16, 16, 130, 130, 256, 0),     # Gemma: hd 256, g = 1
     (2, 4, 4, 70, 70, 64, 0),          # smoke configs' hd
+    (1, 32, 32, 333, 333, 112, 0),     # Zamba2's shared block: hd 112
 ])
 def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd, window):
     q = randn(dev, (B, S, H, hd), dtype, 1).transpose(1, 2)
@@ -96,6 +100,7 @@ def test_flash_kernel_fully_masked_rows(dev, dtype):
     (4, 36, 4, 4096, 128, 0),          # StarCoder2 decode at max_seq 4096
     (3, 18, 2, 100, 32, 30),
     (2, 16, 16, 300, 256, 0),          # Gemma
+    (4, 32, 32, 4096, 112, 0),         # Zamba2's shared block: hd 112
 ])
 def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, T, hd, window):
     q = randn(dev, (B, H, hd), dtype, 7)
@@ -128,6 +133,74 @@ def test_decode_kernel_fully_masked_rows(dev, dtype):
     want = tref.decode_attention_ref(q, k, v, kpos, cur, scale=hd ** -0.5)
     close(got, want, dtype)
     close(got[1], v[1].float().mean(1).expand(H, hd), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,p,n,decay,s0,strided", [
+    (1, 8, 112, 64, 64, "uniform", False, False),   # Zamba2 prefill
+    (1, 8, 32, 64, 128, "uniform", False, False),   # Mamba2-370M prefill
+    (2, 1, 112, 64, 64, "uniform", True, False),    # one chunk
+    (1, 33, 32, 64, 128, "uniform", True, True),    # strided states
+    (1, 8, 112, 64, 64, "zero", True, False),       # decay underflowed
+    (1, 8, 112, 64, 64, "one", True, False),
+])
+def test_ssd_scan_kernel_matches_plain(dev, b, c, h, p, n, decay, s0,
+                                       strided):
+    shape = (b, h, c, p, n) if strided else (b, c, h, p, n)
+    states = randn(dev, shape, "float32", 13)
+    if strided:
+        states = states.transpose(1, 2)
+    # the model reads the chunk decays as a strided view of a cumsum
+    gen = torch.Generator(device=dev).manual_seed(14)
+    dec = torch.rand((b, c, 2, h), generator=gen, device=dev)[:, :, -1]
+    if decay != "uniform":
+        dec.fill_(0.0 if decay == "zero" else 1.0)
+    init = (randn(dev, (b, h, p, n), "float32", 15) if s0 else
+            torch.zeros((b, h, p, n), device=dev))
+    n_launch = tssd.LAUNCHES
+    prev, fin = tssd.ssd_state_scan(states, dec, init)
+    torch.cuda.synchronize()
+    assert tssd.LAUNCHES == n_launch + 1
+    want_prev, want_fin = tref.ssd_state_scan_ref(states, dec, init)
+    torch.testing.assert_close(prev, want_prev, atol=1e-6, rtol=0)
+    torch.testing.assert_close(fin, want_fin, atol=1e-6, rtol=0)
+    assert torch.equal(prev[:, 0], init)
+    assert torch.isfinite(prev).all() and torch.isfinite(fin).all()
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_rejects_what_it_cannot_read(dev):
+    states = torch.zeros((1, 2, 3, 4, 8), device=dev)
+    dec = torch.ones((1, 2, 3), device=dev)
+    init = torch.zeros((1, 3, 4, 8), device=dev)
+    with pytest.raises(ValueError, match="unit-stride"):
+        tssd.ssd_state_scan(states.transpose(3, 4).contiguous()
+                            .transpose(3, 4), dec, init)
+    with pytest.raises(ValueError, match="float32"):
+        tssd.ssd_state_scan(states.double(), dec, init)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_ssm_engine_on_card_matches_cpu(dev, arch):
+    """The smoke SSM and hybrid models in fp32 serve the same tokens on
+    the card (through K3 and, for the hybrid, K1 and K2) as on the CPU
+    (through the plain versions)."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
+                              dtype="float32")
+    lm = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for where in ("cpu", "cuda"):
+        reqs = make_requests(cfg, 5, max_new=6, prompt_len=(2, 70))
+        eng = ServingEngine(cfg, lm.to(where), max_batch=3, max_seq=96,
+                            scheduler="dpa", device=where)
+        for r in reqs:
+            eng.submit(r)
+        n = tssd.LAUNCHES
+        eng.run()
+        out[where] = [(r.tokens, r.ttft_step, r.done_step) for r in reqs]
+        assert (tssd.LAUNCHES == n) == (where == "cpu")
+    assert out["cpu"] == out["cuda"]
 
 
 @pytest.mark.cuda

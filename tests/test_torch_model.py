@@ -40,15 +40,24 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+#: SSM and hybrid variants: the reduced configs, and a 5-layer hybrid
+#: with the shared block after every 2 SSM layers (groups 2, 2 and a
+#: tail of 1)
+SSM_ARCHS = {"mamba2-370m": ("mamba2-370m", {}),
+             "zamba2-7b": ("zamba2-7b", {}),
+             "zamba2-7b-l5": ("zamba2-7b", dict(num_layers=5, attn_every=2))}
+
+
 @pytest.fixture(scope="module")
 def built():
     cache = {}
 
     def get(arch, dtype):
         if (arch, dtype) not in cache:
-            jcfg = dataclasses.replace(jreduce(jget_arch(arch)), dtype=dtype)
-            cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
-                                      dtype=dtype)
+            base, kw = SSM_ARCHS.get(arch, (arch, {}))
+            kw = dict(kw, dtype=dtype)
+            jcfg = dataclasses.replace(jreduce(jget_arch(base)), **kw)
+            cfg = dataclasses.replace(reduce_for_smoke(get_arch(base)), **kw)
             tree = jax.tree.map(np.asarray,
                                 unbox(jmodel.init(jcfg, jax.random.PRNGKey(0))))
             cache[(arch, dtype)] = (jcfg, cfg, tree,
@@ -211,8 +220,7 @@ def test_windowed_decode_matches_windowed_forward(built):
     assert float((plain[:, -1] - full[:, -1]).abs().max()) > 1e-6
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mamba2-370m",
-                                  "zamba2-7b", "whisper-tiny",
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-tiny",
                                   "pixtral-12b", "llama4-scout-17b-a16e"])
 def test_unported_families_raise(arch):
     cfg = reduce_for_smoke(get_arch(arch))
@@ -220,3 +228,123 @@ def test_unported_families_raise(arch):
         model.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.init_decode_cache(cfg, 1, 8, device="cpu")
+
+
+# --------------------------------------------------------------------------
+# SSM (Mamba2) and hybrid (Zamba2) families
+# --------------------------------------------------------------------------
+
+def close_cache(got, want, dtype):
+    for family, leaves in want.items():
+        assert set(got[family]) == set(leaves), family
+        for name, leaf in leaves.items():
+            assert tuple(got[family][name].shape) == leaf.shape, name
+            if name == "pos":
+                np.testing.assert_array_equal(got[family][name].numpy(),
+                                              np.asarray(leaf))
+            else:
+                close(got[family][name], leaf, dtype)
+
+
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_params_carry_over_exactly(built, arch, dtype):
+    _, cfg, tree, lm = built(arch, dtype)
+    sd = lm.state_dict()
+    assert len(lm.layers) == cfg.num_layers
+    for l in range(cfg.num_layers):
+        for leaf in ("in_proj", "A_log", "conv_w"):
+            np.testing.assert_array_equal(
+                f32(sd[f"layers.{l}.mixer.{leaf}"]),
+                f32(tree["layers"]["mixer"][leaf][l]))
+        np.testing.assert_array_equal(f32(sd[f"layers.{l}.norm.scale"]),
+                                      f32(tree["layers"]["norm"]["scale"][l]))
+    assert sd["layers.0.mixer.A_log"].dtype == torch.float32
+    assert sd["layers.0.mixer.in_proj"].dtype == getattr(torch, dtype)
+    assert ("shared_attn" in tree) == bool(cfg.attn_every)
+    if cfg.attn_every:
+        np.testing.assert_array_equal(f32(sd["shared_attn.attn.wq"]),
+                                      f32(tree["shared_attn"]["attn"]["wq"]))
+        np.testing.assert_array_equal(f32(sd["shared_attn.mlp.wo"]),
+                                      f32(tree["shared_attn"]["mlp"]["wo"]))
+
+
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+def test_ssm_init_has_reference_layout(built, arch):
+    _, cfg, _, ref_lm = built(arch, "bfloat16")
+    lm = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want = {k: (tuple(v.shape), v.dtype)
+            for k, v in ref_lm.state_dict().items()}
+    got = {k: (tuple(v.shape), v.dtype) for k, v in lm.state_dict().items()}
+    assert got == want
+    mixer = lm.layers[0].mixer
+    assert abs(mixer.in_proj.float().std().item() * cfg.d_model ** 0.5
+               - 1.0) < 0.05
+    np.testing.assert_allclose(
+        mixer.A_log.numpy(), np.log(np.arange(1, cfg.ssm_nheads + 1)),
+        rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_forward_matches_reference(built, arch, dtype):
+    """A 45-token prompt: one full chunk of 32 and a padded one."""
+    jcfg, cfg, tree, lm = built(arch, dtype)
+    toks = tokens_for(cfg, 2, 45, 1)
+    want, jcache, _ = jmodel.forward(jcfg, tree, {"tokens": jnp.asarray(toks)},
+                                     return_cache=True)
+    got, cache, _ = model.forward(cfg, lm, {"tokens": torch.from_numpy(toks)},
+                                  return_cache=True)
+    assert got.shape == (2, 45, cfg.padded_vocab)
+    assert torch.isfinite(got.float()).all()
+    close(got, want, dtype)
+    assert set(cache) == ({"ssm", "attn"} if cfg.attn_every else {"ssm"})
+    close_cache(cache, jcache, dtype)
+
+
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_decode_step_matches_reference(built, arch, dtype):
+    """A prefill cache written into a decode cache, then one decode step
+    for two sequences at different positions."""
+    jcfg, cfg, tree, lm = built(arch, dtype)
+    B, S, max_seq = 2, 11, 32
+    toks = tokens_for(cfg, B, S + 1, 2)
+    _, jpre, _ = jmodel.forward(jcfg, tree,
+                                {"tokens": jnp.asarray(toks[:, :S])},
+                                return_cache=True)
+    jcache = jmodel.merge_prefill_cache(
+        jmodel.init_decode_cache(jcfg, B, max_seq), jpre)
+    cur = np.asarray([S, S - 1], np.int32)
+    nxt = toks[np.arange(B), cur][:, None]
+    want, jnew = jmodel.decode_step(jcfg, tree, jnp.asarray(nxt), jcache,
+                                    jnp.asarray(cur))
+    cache = jax.tree.map(to_torch, jcache)
+    got, new = model.decode_step(cfg, lm, torch.from_numpy(nxt), cache,
+                                 torch.from_numpy(cur))
+    assert new is cache          # updated in place
+    assert got.shape == (B, 1, cfg.padded_vocab)
+    close(got, want, dtype)
+    close_cache(new, jnew, dtype)
+
+
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+def test_ssm_decode_matches_full_forward(built, arch):
+    """The port alone: prefill S-1 tokens, write each sequence into its
+    slot, decode the last token, against the full forward (fp32, <
+    1e-3), at prompt lengths that cross a chunk boundary (33) and that
+    leave the conv window short (2)."""
+    _, cfg, _, lm = built(arch, "float32")
+    for S in (34, 3):
+        toks = torch.from_numpy(tokens_for(cfg, 2, S, 7))
+        full, _, _ = model.forward(cfg, lm, {"tokens": toks})
+        _, pre, _ = model.forward(cfg, lm, {"tokens": toks[:, :S - 1]},
+                                  return_cache=True)
+        cache = model.init_decode_cache(cfg, 2, S + 4, device="cpu")
+        for b in range(2):
+            one = {fam: {k: v[:, b:b + 1] for k, v in leaves.items()}
+                   for fam, leaves in pre.items()}
+            _write_slot(cache, one, b)
+        cur = torch.full((2,), S - 1, dtype=torch.int32)
+        lg, _ = model.decode_step(cfg, lm, toks[:, S - 1:], cache, cur)
+        assert float((lg[:, 0] - full[:, -1]).abs().max()) < 1e-3

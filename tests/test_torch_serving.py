@@ -20,6 +20,7 @@ from repro.serving.engine import ServingEngine as JEngine
 from repro_torch.configs import get_arch, reduce_for_smoke
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.launch.serve import make_requests
 from repro_torch.models.convert import params_from_reference
 from repro_torch.serving.engine import ServeRequest, ServingEngine
@@ -33,10 +34,10 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def both_params(arch):
-    jcfg = dataclasses.replace(jreduce(jget_arch(arch)), dtype="float32")
-    cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
-                              dtype="float32")
+def both_params(arch, **overrides):
+    kw = dict(overrides, dtype="float32")
+    jcfg = dataclasses.replace(jreduce(jget_arch(arch)), **kw)
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)), **kw)
     tree = jax.tree.map(np.asarray,
                         unbox(jmodel.init(jcfg, jax.random.PRNGKey(0))))
     return jcfg, tree, cfg, params_from_reference(cfg, tree, "cpu")
@@ -49,8 +50,8 @@ def mirror(req):
                     arrival=req.arrival, ttft_deadline=req.ttft_deadline)
 
 
-def serve_both(arch, reqs, **engine_kw):
-    jcfg, tree, cfg, lm = both_params(arch)
+def serve_both(arch, reqs, overrides=None, **engine_kw):
+    jcfg, tree, cfg, lm = both_params(arch, **(overrides or {}))
     jeng = JEngine(jcfg, tree, **engine_kw)
     eng = ServingEngine(cfg, lm, device="cpu", **engine_kw)
     jreqs = [mirror(r) for r in reqs]
@@ -102,3 +103,24 @@ def test_max_seq_stop_matches_reference():
     reqs = make_requests(cfg, 3, max_new=40, prompt_len=(10, 20), seed=1)
     serve_both("gemma-7b", reqs, max_batch=2, max_seq=32, scheduler="edf")
     assert any(len(r.tokens) < 40 for r in reqs)
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("mamba2-370m", {}),
+    ("zamba2-7b", {}),
+    ("zamba2-7b", dict(num_layers=5, attn_every=2)),
+], ids=["mamba2-370m", "zamba2-7b", "zamba2-7b-l5"])
+def test_ssm_engine_matches_reference(arch, overrides):
+    """The SSM and hybrid families behind DPA: 6 requests through 3
+    slots (slots reused, so prefill overwrites whole SSM states and conv
+    windows that idle decode steps kept advancing), prompts of 2 to 40
+    tokens (a conv window left-padded, a chunk boundary crossed); the CPU
+    path never launches a kernel."""
+    cfg = reduce_for_smoke(get_arch(arch))
+    reqs = make_requests(cfg, 6, max_new=5, prompt_len=(2, 41), seed=3)
+    reqs[1].prompt = reqs[1].prompt[:2]
+    before = (tfa.LAUNCHES, tdec.LAUNCHES, tssd.LAUNCHES)
+    serve_both(arch, reqs, overrides, max_batch=3, max_seq=64,
+               scheduler="dpa")
+    assert (tfa.LAUNCHES, tdec.LAUNCHES, tssd.LAUNCHES) == before
+    assert all(len(r.tokens) == 5 for r in reqs)
