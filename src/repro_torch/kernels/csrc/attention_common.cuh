@@ -1,5 +1,6 @@
 // Pieces shared by the attention kernels: the mask value, fp32 widening
-// of the input types, and the vectorised tile load.
+// of the input types, the vectorised fp32 tile load, cp.async, and the
+// mma.sync / ldmatrix tensor-core pieces.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,37 +93,6 @@ __device__ __forceinline__ void load_rows(const T* src, long long st, int r0,
   }
 }
 
-// The same rows copied as bf16, 16 bytes at a time, into a shared-memory
-// tile with row stride `ld` (a multiple of 8 elements).
-template <int HD, int ROWS, int NTHREADS>
-__device__ __forceinline__ void copy_rows(const __nv_bfloat16* src,
-                                          long long st, int r0, int rend,
-                                          __nv_bfloat16* dst, int ld) {
-  constexpr int PER_ROW = HD / 8;
-  constexpr int TOTAL = ROWS * PER_ROW;
-  constexpr int ROUND = 8 * NTHREADS;
-#pragma unroll
-  for (int base = 0; base < TOTAL; base += ROUND) {
-    uint4 r[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int idx = base + j * NTHREADS + threadIdx.x;
-      const int row = r0 + idx / PER_ROW;
-      r[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < TOTAL && row < rend)
-        r[j] = *reinterpret_cast<const uint4*>(src + row * st +
-                                               (idx % PER_ROW) * 8);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int idx = base + j * NTHREADS + threadIdx.x;
-      if (idx < TOTAL)
-        *reinterpret_cast<uint4*>(dst + (idx / PER_ROW) * ld +
-                                  (idx % PER_ROW) * 8) = r[j];
-    }
-  }
-}
-
 // Tensor-core pieces (sm_80 and later): an m16n8k16 bf16 product with
 // fp32 accumulation, and the ldmatrix loads that feed it from shared
 // memory.  Fragment layouts are PTX's: in a C fragment thread t holds
@@ -140,12 +110,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -159,6 +123,23 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+// 16-byte asynchronous copy global -> shared (sm_80 and later); when
+// `full` is false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Two fp32 values as one bf16x2 register (the first in the low half).

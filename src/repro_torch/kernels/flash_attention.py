@@ -5,9 +5,12 @@ Port of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
 q (B,H,S,hd), k/v (B,Hkv,T,hd), q_pos (B,S), k_pos (B,T), through
 strides, so the model hands it transposed views of its (B,S,H,hd)
 activations without a copy; any S and T work (no block divisibility).
-This wrapper only launches: it raises for tensors that are not on a
-CUDA device.  ``ops.flash_attention`` picks between it and the plain
-version in ``ref``.
+bf16 inputs go through the wgmma kernel, whose TMA tensor maps describe
+those views in place: their base addresses and strides must be 16-byte
+aligned, and this wrapper raises (through ``_build.check_qkv``) on any
+that is not.  This wrapper only launches: it raises for tensors that
+are not on a CUDA device.  ``ops.flash_attention`` picks between it and
+the plain version in ``ref``.
 """
 from __future__ import annotations
 

@@ -245,17 +245,9 @@ def ssm_forward(params: SSM, x, cfg: ModelConfig,
 def ssm_decode(params: SSM, x, cfg: ModelConfig, cache: Dict):
     """x: (B, 1, D).  Writes the shifted conv window and the new state
     into ``cache`` in place (the reference builds a new cache) and
-    returns ``(y, cache)``.
-
-    One deliberate difference from the reference: the conv over the
-    window runs the prefill's ops in the model dtype (``_conv``), where
-    the reference's decode computes it in fp32.  In bf16 the reference's
-    two paths round the conv differently; on an H100, over Zamba2-7B's
-    81 layers and 31 decode steps, that accounted for 2.3e-2 of the
-    relative L2 gap between a decode step's logits and a full forward
-    (8.3e-2 with it, 6.0e-2 without), and on the CPU, where nothing
-    else differs, a decode step now continues the prefill exactly.  In
-    fp32 the two agree to rounding.
+    returns ``(y, cache)``.  The conv over the window is computed in
+    fp32, as the reference's decode does (its prefill conv runs in the
+    model dtype).
     """
     Bsz = x.shape[0]
     di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
@@ -263,7 +255,9 @@ def ssm_decode(params: SSM, x, cfg: ModelConfig, cache: Dict):
     z, xc_new, dtl = _split_proj(cfg, x @ params.in_proj)     # (B, 1, .)
     window = torch.cat([cache["conv"], xc_new.to(cache["conv"].dtype)],
                        dim=1)                                # (B, W, C)
-    conv_out = _conv(window, params.conv_w, params.conv_b)[:, 0].float()
+    conv_out = torch.einsum("bwc,wc->bc", window.float(),
+                            params.conv_w.float())
+    conv_out = _silu(conv_out + params.conv_b.float())
     xs = conv_out[:, :di]
     Bm = conv_out[:, di:di + N]
     Cm = conv_out[:, di + N:]

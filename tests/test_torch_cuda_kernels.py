@@ -51,19 +51,42 @@ def close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,H,Hkv,S,T,hd,window", [
-    (1, 36, 4, 300, 300, 128, 0),      # StarCoder2 widths, ragged S = T
-    (2, 18, 2, 37, 53, 32, 16),        # S != T, windowed
-    (1, 16, 16, 130, 130, 256, 0),     # Gemma: hd 256, g = 1
-    (2, 4, 4, 70, 70, 64, 0),          # smoke configs' hd
-    (1, 32, 32, 333, 333, 112, 0),     # Zamba2's shared block: hd 112
+@pytest.mark.parametrize("B,H,Hkv,S,T,hd,window,layout", [
+    (1, 36, 4, 300, 300, 128, 0, "view"),   # StarCoder2 widths, ragged S = T
+    (2, 18, 2, 37, 53, 32, 16, "view"),     # S != T, windowed
+    (1, 16, 16, 130, 130, 256, 0, "view"),  # Gemma: hd 256, g = 1
+    (2, 4, 4, 70, 70, 64, 0, "view"),       # smoke configs' hd
+    (1, 32, 32, 333, 333, 112, 0, "view"),  # Zamba2's shared block: hd 112
+    # around the 128-row q tile and the 128-key kv tile
+    (1, 9, 1, 127, 127, 128, 0, "view"),
+    (1, 9, 1, 129, 257, 128, 0, "view"),
+    (1, 4, 4, 255, 385, 112, 0, "view"),
+    (2, 9, 1, 40, 40, 112, 0, "view"),      # S < 64, g = 9
+    (1, 4, 4, 1, 300, 128, 0, "view"),      # one query row
+    (1, 9, 1, 200, 200, 112, 0, "view"),    # hd 112, g = 9
+    (1, 4, 4, 200, 200, 128, 0, "view"),    # hd 128, g = 1
+    (1, 9, 1, 300, 300, 128, 64, "view"),   # window inside the kv tile
+    (2, 9, 1, 200, 200, 128, 0, "padded"),  # padded and live rows in a tile
+    (2, 8, 2, 150, 150, 112, 0, "contiguous"),  # (B, H, S, hd) buffers
+    (1, 9, 1, 1024, 8192, 128, 0, "view"),  # T >= 8192
+    (1, 4, 2, 160, 160, 160, 0, "view"),    # hd 160: 64-key tiles
 ])
-def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd, window):
-    q = randn(dev, (B, S, H, hd), dtype, 1).transpose(1, 2)
-    k = randn(dev, (B, T, Hkv, hd), dtype, 2).transpose(1, 2)
-    v = randn(dev, (B, T, Hkv, hd), dtype, 3).transpose(1, 2)
-    qpos = (torch.arange(S, device=dev) + (T - S)).expand(B, S)
-    kpos = torch.arange(T, device=dev).expand(B, T)
+def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd, window,
+                                    layout):
+    if layout == "contiguous":
+        q = randn(dev, (B, H, S, hd), dtype, 1)
+        k = randn(dev, (B, Hkv, T, hd), dtype, 2)
+        v = randn(dev, (B, Hkv, T, hd), dtype, 3)
+    else:
+        q = randn(dev, (B, S, H, hd), dtype, 1).transpose(1, 2)
+        k = randn(dev, (B, T, Hkv, hd), dtype, 2).transpose(1, 2)
+        v = randn(dev, (B, T, Hkv, hd), dtype, 3).transpose(1, 2)
+    qpos = (torch.arange(S, device=dev, dtype=torch.int32)
+            + (T - S)).repeat(B, 1)
+    kpos = torch.arange(T, device=dev, dtype=torch.int32).expand(B, T)
+    if layout == "padded":   # left padding: q_pos -1 before live rows
+        qpos[0, :70] = -1
+        qpos[1, :3] = -1
     n = tfa.LAUNCHES
     got = tfa.flash_attention(q, k, v, qpos, kpos, scale=hd ** -0.5,
                               window=window)
@@ -101,6 +124,13 @@ def test_flash_kernel_fully_masked_rows(dev, dtype):
     (3, 18, 2, 100, 32, 30),
     (2, 16, 16, 300, 256, 0),          # Gemma
     (4, 32, 32, 4096, 112, 0),         # Zamba2's shared block: hd 112
+    (3, 9, 1, 1000, 112, 0),           # hd 112, g = 9
+    (4, 8, 8, 777, 128, 0),            # hd 128, g = 1, ragged cache
+    (3, 18, 2, 3000, 128, 500),        # windowed
+    (2, 36, 4, 9000, 128, 0),          # T >= 8192: several chunks
+    (2, 4, 4, 5, 64, 0),               # a cache shorter than a sub-tile
+    (2, 4, 2, 130, 16, 0),             # hd 16
+    (2, 4, 2, 400, 160, 0),            # hd 160
 ])
 def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, T, hd, window):
     q = randn(dev, (B, H, hd), dtype, 7)
@@ -117,6 +147,43 @@ def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, T, hd, window):
     want = tref.decode_attention_ref(q, k, v, kpos, cur, scale=hd ** -0.5,
                                      window=window)
     close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_repeats_bit_identical(dev):
+    """The warps' and the chunks' partials merge in a fixed order, with
+    no atomics: the same inputs give the same bits."""
+    B, H, Hkv, T, hd = 4, 32, 32, 4096, 112
+    q = randn(dev, (B, H, hd), "bfloat16", 16)
+    k = randn(dev, (B, T, Hkv, hd), "bfloat16", 17).transpose(1, 2)
+    v = randn(dev, (B, T, Hkv, hd), "bfloat16", 18).transpose(1, 2)
+    cur = torch.tensor([4095, 1999, 777, 130], device=dev, dtype=torch.int32)
+    kpos = torch.arange(T, device=dev, dtype=torch.int32).expand(B, T)
+    kpos = torch.where(kpos <= cur[:, None], kpos, -1)
+    first = tdec.decode_attention(q, k, v, kpos, cur, scale=hd ** -0.5)
+    again = tdec.decode_attention(q, k, v, kpos, cur, scale=hd ** -0.5)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_reject_misaligned_views(dev):
+    """TMA (prefill) and the 16-byte copies (decode) need 16-byte aligned
+    base addresses and strides: the wrappers raise, never fall back."""
+    B, H, S, hd = 1, 4, 64, 128
+    flat = randn(dev, (B * S * H * hd + 8,), "bfloat16", 19)
+    good = flat[:B * S * H * hd].view(B, S, H, hd).transpose(1, 2)
+    bad = flat[1:1 + B * S * H * hd].view(B, S, H, hd).transpose(1, 2)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(bad, good, good, pos, pos, scale=hd ** -0.5)
+    wide = randn(dev, (B, S, H, hd + 4), "bfloat16", 20)[..., :hd]
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(good, good, wide.transpose(1, 2), pos, pos,
+                            scale=hd ** -0.5)
+    cur = torch.full((B,), S - 1, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tdec.decode_attention(bad[:, :, 0], good, good, pos, cur,
+                              scale=hd ** -0.5)
 
 
 @pytest.mark.cuda

@@ -124,12 +124,13 @@ def test_decode_attention_fully_masked_rows(dtype):
                                    atol=TOL[dtype], rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("B,Hkv,T,sms,want", [
-    (4, 4, 4096, 132, (32, 128)),      # StarCoder2 decode: 512 blocks
-    (1, 1, 100, 132, (2, 64)),         # short ragged cache
-    (64, 8, 512, 132, (2, 256)),       # already 512 rows: 2 chunks
+@pytest.mark.parametrize("B,Hkv,T,hd,sms,want", [
+    (4, 4, 4096, 128, 132, (8, 512)),     # StarCoder2: 256 KB of cache a block
+    (4, 32, 4096, 112, 132, (3, 1408)),   # Zamba2: one wave, 2 blocks an SM
+    (1, 1, 100, 128, 132, (1, 128)),      # short cache: one piece
 ])
-def test_decode_split_plan(B, Hkv, T, sms, want):
-    nsplit, chunk = tdec.split_plan(B, Hkv, T, sms)
+def test_decode_split_plan(B, Hkv, T, hd, sms, want):
+    nsplit, chunk = tdec.split_plan(B, Hkv, T, hd, 2, sms)
     assert (nsplit, chunk) == want
-    assert chunk % tdec.TILE == 0 and (nsplit - 1) * chunk < T <= nsplit * chunk
+    assert chunk % tdec.TILE == 0 and chunk <= tdec.MAX_CHUNK
+    assert (nsplit - 1) * chunk < T <= nsplit * chunk

@@ -6,11 +6,14 @@ in interpret mode (``repro.kernels.ops``) at the reference sweep's
 atol 1e-6 (``tests/test_kernels.py``); ``ssd_chunked`` to the
 reference's in fp32 at 1e-5 (einsums summed in another order); one
 ``SSM`` mixer's prefill and decode to the reference on carried weights
-in fp32 at 1e-4 (the model tolerance of ``tests/test_torch_model.py``).
+in fp32 at 1e-4 (the model tolerance of ``tests/test_torch_model.py``)
+and in bf16 at 1e-3 (both sides round the same ops).
 """
 import dataclasses
+import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -33,6 +36,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+#: mixer-level tolerances, atol = rtol: the decode step, and the prefill
+#: (in bf16 the chunked SSD's einsums round in another order than XLA's,
+#: so a few outputs differ by one bf16 ulp; 3e-2 is the bf16 kernel
+#: tolerance of ``tests/test_kernels.py``)
+MIXER_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+PREFILL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def normal(rng, shape):
@@ -106,26 +117,36 @@ def test_ssd_chunked_matches_reference(l, chunk, with_state):
                                atol=1e-5, rtol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def mixer():
-    """One Mamba2 mixer of the reduced Mamba2-370M in fp32, the
-    reference's weights carried into the port's ``SSM``."""
+@functools.lru_cache(maxsize=None)
+def _mixer(dtype):
+    """One Mamba2 mixer of the reduced Mamba2-370M in ``dtype``, the
+    reference's weights carried into the port's ``SSM`` (bf16 rounds the
+    same fp32 draws to the same values on both sides)."""
     jcfg = dataclasses.replace(jreduce(jget_arch("mamba2-370m")),
-                               dtype="float32")
+                               dtype=dtype)
     cfg = dataclasses.replace(reduce_for_smoke(get_arch("mamba2-370m")),
-                              dtype="float32")
+                              dtype=dtype)
+    f32 = dataclasses.replace(jcfg, dtype="float32")
     tree = jax.tree.map(np.asarray,
-                        unbox(jssm.init_ssm(jcfg, jax.random.PRNGKey(4))))
+                        unbox(jssm.init_ssm(f32, jax.random.PRNGKey(4))))
+    # a non-trivial conv bias (the reference initialises it to zero)
+    rng = np.random.default_rng(9)
+    tree["conv_b"] = normal(rng, tree["conv_b"].shape) * 0.1
     mod = tssm.SSM(cfg, "cpu")
     with torch.no_grad():
         for name, p in mod.named_parameters():
             p.copy_(torch.from_numpy(np.array(tree[name])))
-    # a non-trivial conv bias (the reference initialises it to zero)
-    rng = np.random.default_rng(9)
-    tree["conv_b"] = normal(rng, tree["conv_b"].shape) * 0.1
-    with torch.no_grad():
-        mod.conv_b.copy_(torch.from_numpy(tree["conv_b"]))
-    return jcfg, cfg, tree, mod
+    like = unbox(jssm.init_ssm(jcfg, jax.random.PRNGKey(4)))
+    jtree = {k: jnp.asarray(v).astype(like[k].dtype)
+             for k, v in tree.items()}
+    return jcfg, cfg, jtree, mod
+
+
+@pytest.fixture(scope="module")
+def mixer():
+    """The fp32 mixer, with the reference's weights as numpy arrays."""
+    jcfg, cfg, jtree, mod = _mixer("float32")
+    return jcfg, cfg, {k: np.asarray(v) for k, v in jtree.items()}, mod
 
 
 def test_ssm_param_layout_matches_reference(mixer):
@@ -143,32 +164,38 @@ def test_ssm_param_layout_matches_reference(mixer):
     assert torch.all((dt > 0.00099) & (dt < 0.101))
 
 
-@pytest.mark.parametrize("L", [1, 2, 3, 45])
-def test_ssm_forward_and_decode_match_reference(mixer, L):
+@pytest.mark.parametrize("dtype,L", [
+    ("float32", 1), ("float32", 2), ("float32", 3), ("float32", 45),
+    ("bfloat16", 1), ("bfloat16", 3), ("bfloat16", 45)])
+def test_ssm_forward_and_decode_match_reference(dtype, L):
     """Prefill of L tokens with its cache (left-padded conv window when
-    L < 3), then one decode step from that cache."""
-    jcfg, cfg, tree, mod = mixer
+    L < 3), then one decode step from that cache, held to the reference
+    at ``MIXER_TOL``: the decode conv runs in fp32 on both sides."""
+    jcfg, cfg, tree, mod = _mixer(dtype)
     rng = np.random.default_rng(L)
     x = normal(rng, (2, L + 1, cfg.d_model))
-    want, jcache = jssm.ssm_forward(tree, x[:, :L], jcfg, return_cache=True)
-    got, cache = tssm.ssm_forward(mod, torch.from_numpy(x[:, :L]), cfg,
-                                  return_cache=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
-                               rtol=1e-4)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+
+    def close(got, want, tol):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol[dtype], rtol=tol[dtype])
+
+    want, jcache = jssm.ssm_forward(tree, jx[:, :L], jcfg,
+                                    return_cache=True)
+    got, cache = tssm.ssm_forward(mod, tx[:, :L], cfg, return_cache=True)
+    close(got, want, PREFILL_TOL)
     for name in ("conv", "ssm"):
         assert cache[name].shape == jcache[name].shape
-        np.testing.assert_allclose(cache[name].numpy(),
-                                   np.asarray(jcache[name]), atol=1e-4,
-                                   rtol=1e-4)
-    want, jnew = jssm.ssm_decode(tree, x[:, L:], jcfg, jcache)
-    got, new = tssm.ssm_decode(mod, torch.from_numpy(x[:, L:]), cfg, cache)
+        close(cache[name], jcache[name], PREFILL_TOL)
+    want, jnew = jssm.ssm_decode(tree, jx[:, L:], jcfg, jcache)
+    got, new = tssm.ssm_decode(mod, tx[:, L:], cfg, cache)
     assert new is cache          # updated in place
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
-                               rtol=1e-4)
+    assert got.dtype == tx.dtype
+    close(got, want, MIXER_TOL)
     for name in ("conv", "ssm"):
-        np.testing.assert_allclose(new[name].numpy(),
-                                   np.asarray(jnew[name]), atol=1e-4,
-                                   rtol=1e-4)
+        close(new[name], jnew[name], MIXER_TOL)
 
 
 def test_ssm_forward_with_initial_state_matches_reference(mixer):
