@@ -36,13 +36,31 @@ which must pass for the run to exit 0:
    forward over its prompt and generated tokens: in bf16 for the dense
    model; for every model, the same tokens through the same model in
    fp32, a prefill and 31 decode steps against a full forward
-   (``SERVE_LOGIT_TOL``, ``FP32_LOGIT_TOL``).
+   (``SERVE_LOGIT_TOL``, ``FP32_LOGIT_TOL``);
+5. simulate: the paper's main path.  A 3-day trace
+   (``generate_trace(WorkloadSpec(days=3, scale=0.05, seed=0))``, about
+   745k requests) through ``build_stack(...).simulate`` on the fully
+   co-optimised ``lt-ua+plan`` stack (LT-UA scaling, the routing-aware
+   ``sageserve`` forecast + ILP planner, the ``plan`` router), with
+   every hourly ARIMA fit on the card: 12 series (4 models x 3
+   regions) of 60-s buckets, up to 2,815 points unseasoned and 1,439
+   seasonal, 150 Adam steps.  ``scale`` (the request volume) is the one
+   cut, for host time; it does not change the fits' sizes.  Every
+   boundary is replayed with the fit's plain version on the host: its
+   parameters must equal the kernel's bit for bit, and the ILP targets
+   its forecasts give are counted against the run's.
+
+The ARMA fit kernel (``arma_fit``) is also checked in phase 3 against
+its plain version bit for bit: orders (1,1), (2,1), (2,2), (3,1), (2,0),
+(0,1), rows of 1 to 2,815 points, cold and warm inits, repeats, and a
+row alone, in a batch and permuted.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -51,7 +69,9 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -83,15 +103,25 @@ PROFILED_CALL = 2        # which prefill and which decode call to profile
 PORT_KERNELS = ("flash_fwd_wgmma", "flash_fwd", "decode_split_mma",
                 "decode_split", "decode_combine", "ssd_scan")
 SPIN_CYCLES = 4_000_000  # ~2 ms at H100 clocks: longer than any call's host time
+# The ARMA fit (phase 5): the lt-ua+plan stack of benchmarks/common.py
+# (stack_spec(BenchSpec(), "lt-ua+plan")), written out: that module
+# imports jax.  Kernel and plain version round every op alike and must
+# agree bit for bit (ARMA_ATOL = 0).
+SIM_WORKLOAD = dict(days=3.0, scale=0.05, seed=0)
+SIM_PLANNER = {"min_instances": 2, "epsilon": 0.8, "fit_steps": 150,
+               "theta_headroom": 0.7, "use_routing": True}
+ARMA_ATOL = 0.0
+ARMA_ORDERS = ((1, 1), (2, 1), (2, 2), (3, 1), (2, 0), (0, 1))
+FMA_LATENCY_CYCLES = 4   # one dependent fp32 FMA on Hopper
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def smi_line() -> str:
+def smi_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", f"--query-gpu={fields}",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
@@ -296,7 +326,7 @@ def check_kernels(dev):
                                 strided=True)),
     ]
     errs = {"flash_attention": 0.0, "decode_attention": 0.0,
-            "ssd_scan": 0.0}
+            "ssd_scan": 0.0, "arma_fit": 0.0}
     failed = []
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[dtype]
@@ -322,9 +352,71 @@ def check_kernels(dev):
                          SCAN_ATOL, 0.0)
         if not torch.equal(prev[:, 0], args[2]):
             failed.append(f"ssd_scan {label}: prev[:, 0] is not s0")
+    failed += check_arma(dev, gen, errs)
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
     return errs
+
+
+def arma_rows(dev, gen, rows, length):
+    """Rows as the forecast engine fits them: a differenced series with
+    some persistence, normalized per row, fp32 on the card."""
+    w = torch.randn((rows, length), generator=gen, device=dev)
+    y = w + 0.6 * torch.roll(w, 1, dims=1) + 0.02 * torch.cumsum(w, 1)
+    if length > 1:
+        y = (y - y.mean(1, keepdim=True)) / (y.std(1, keepdim=True) + 1e-6)
+    return y
+
+
+def arma_plain(y, init, p, q, steps, lr=0.05):
+    """The fit's plain version (host, float32) on card tensors."""
+    from repro_torch.kernels import ref
+
+    prm, loss = ref.arma_fit_ref(y.cpu(), init.cpu(), p, q, steps, lr)
+    return prm.to(y.device), loss.to(y.device)
+
+
+def check_arma(dev, gen, errs, steps=150):
+    """The ARMA fit kernel against its plain version, bit for bit: every
+    order of ``ARMA_ORDERS``, rows of 1, 8, 255 and 2,815 points (the
+    unseasoned maximum), 12 rows, cold and warm inits; then repeats and a
+    row alone, in a batch and permuted, at 37 rows."""
+    from repro_torch.kernels import arma_fit
+
+    failed = []
+    for p, q in ARMA_ORDERS:
+        k = p + 1 + q
+        for length in (1, 8, 255, 2815):
+            y = arma_rows(dev, gen, 12, length)
+            for warm in (False, True):
+                init = (0.1 * torch.randn((12, k), generator=gen, device=dev)
+                        if warm else torch.zeros((12, k), device=dev))
+                got = torch.cat([t.flatten() for t in arma_fit.arma_fit(
+                    y, init, p, q, steps, 0.05)])
+                want = torch.cat([t.flatten() for t in arma_plain(
+                    y, init, p, q, steps)])
+                failed += report("arma_fit", f"p={p} q={q} L={length} "
+                                 f"{'warm' if warm else 'cold'}",
+                                 torch.float32, got, want, errs, ARMA_ATOL,
+                                 0.0)
+    y = arma_rows(dev, gen, 37, 2815)
+    init = 0.1 * torch.randn((37, 4), generator=gen, device=dev)
+    prm, loss = arma_fit.arma_fit(y, init, 2, 1, steps, 0.05)
+    again = arma_fit.arma_fit(y, init, 2, 1, steps, 0.05)
+    perm = torch.randperm(37, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(dev)
+    permuted = arma_fit.arma_fit(y[perm], init[perm], 2, 1, steps, 0.05)
+    alone = arma_fit.arma_fit(y[5:6], init[5:6], 2, 1, steps, 0.05)
+    checks = {"repeat": torch.equal(again[0], prm)
+              and torch.equal(again[1], loss),
+              "permuted": torch.equal(permuted[0], prm[perm])
+              and torch.equal(permuted[1], loss[perm]),
+              "alone": torch.equal(alone[0][0], prm[5])
+              and torch.equal(alone[1][0], loss[5])}
+    log(f"  arma_fit         37 rows x 2815, (2,1): bit-identical "
+        + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    failed += [f"arma_fit {k}" for k, v in checks.items() if not v]
+    return failed
 
 
 def report(name, label, dtype, got, want, errs, atol, rtol):
@@ -632,6 +724,233 @@ def check_fp32_decode(dev, arch: str, seq, steps: int) -> float:
     return rel
 
 
+# ---------------------------------------------------------------- simulate
+def sim_stack(dev):
+    """The lt-ua+plan stack, its forecast fits on ``dev``."""
+    from repro_torch.api import PolicySpec, StackSpec, build_stack
+    from repro_torch.sim.workload import PAPER_MODELS, REGIONS
+
+    return build_stack(StackSpec(
+        models=PAPER_MODELS, regions=REGIONS, scaler="lt-ua", router="plan",
+        initial_instances=5, spot_spare=30, scheduler="fcfs",
+        planner=PolicySpec("sageserve", dict(SIM_PLANNER))), device=dev)
+
+
+def simulate(dev):
+    """Run the 3-day trace through the lt-ua+plan stack with its fits on
+    ``dev``.  Records, per hourly boundary, the planner's inputs, the
+    forecast engine's warm parameters before and after and the Plan, and
+    every batch the fit kernel was given.  Returns the run and the kernel
+    launch counts, set to 0 just before ``simulate`` and read just
+    after."""
+    from repro_torch.api import stack as stack_mod
+    from repro_torch.control import forecast
+    from repro_torch.kernels import arma_fit
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.sim.workload import WorkloadSpec, generate_trace
+
+    t0 = time.perf_counter()
+    reqs = generate_trace(WorkloadSpec(**SIM_WORKLOAD)).to_requests()
+    log(f"  trace: {len(reqs)} requests over {SIM_WORKLOAD['days']:g} days "
+        f"(scale {SIM_WORKLOAD['scale']}, seed {SIM_WORKLOAD['seed']}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stack = sim_stack(dev)
+    planner, engine = stack.planner, stack.planner.engine
+    run = dict(stack=stack, requests=len(reqs), boundaries=[], fits=[],
+               sims=[])
+    plan, fit_batch = planner.plan, forecast._fit_arma_batch
+
+    def recorded_plan(now, instances, history, niw):
+        rec = dict(now=now, instances=dict(instances), niw=dict(niw),
+                   history={k: np.array(v) for k, v in history.items()},
+                   warm_before=copy.deepcopy(engine._warm))
+        out = plan(now, instances, history, niw)
+        rec.update(plan=out, warm_after=copy.deepcopy(engine._warm))
+        run["boundaries"].append(rec)
+        return out
+
+    def recorded_fit(y, init, p, q, steps=400, lr=0.05):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fit_batch(y, init, p, q, steps=steps, lr=lr)
+        end.record()
+        run["fits"].append(dict(y=y, init=forecast._pack(init, len(y), p, q),
+                                p=p, q=q, steps=steps, lr=lr,
+                                events=(start, end)))
+        return out
+
+    class Counted(stack_mod.Simulation):
+        def run(self):
+            run["sims"].append(self)
+            return super().run()
+
+    planner.plan = recorded_plan
+    fa.LAUNCHES = dec.LAUNCHES = ssd.LAUNCHES = arma_fit.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(forecast, "_fit_arma_batch", recorded_fit), \
+            mock.patch.object(stack_mod, "Simulation", Counted):
+        run["report"] = stack.simulate(reqs, name="lt-ua+plan")
+    torch.cuda.synchronize()
+    run["wall"] = time.perf_counter() - t0
+    launches = {"flash_attention": fa.LAUNCHES,
+                "decode_attention": dec.LAUNCHES,
+                "ssd_scan": ssd.LAUNCHES, "arma_fit": arma_fit.LAUNCHES}
+    del planner.plan
+    return run, launches
+
+
+def report_simulation(run, launches) -> None:
+    """Print the run's Report and control-plane counters; fail on a run
+    that did not complete, fitted nothing or fitted off the kernel."""
+    rep, stack = run["report"], run["stack"]
+    planner, engine = stack.planner, stack.planner.engine
+    done = sum(rep.completed.values())
+    total = done + sum(rep.dropped.values())
+    hist = planner.solve_history
+    log(f"  {run['requests']} requests, {run['sims'][0].events_processed} "
+        f"events in {run['wall']:.1f} s wall; completed {done} of {total} "
+        f"({done / max(total, 1):.5f})")
+    log(f"  GPU-hours {rep.total_instance_hours():.2f}, dollars "
+        f"{rep.total_gpu_dollars():.2f}, SLA attainment "
+        + ", ".join(f"{t} {1 - v:.5f}" for t, v in rep.sla_violations.items()))
+    log(f"  {len(run['boundaries'])} hourly boundaries; fits {engine.fits}, "
+        f"unique fits {engine.unique_fits}, dedupe hits {engine.dedup_hits}, "
+        f"cache hits {engine.cache_hits}; fit-kernel launches "
+        f"{launches['arma_fit']} (engine batches {engine.batches}); host "
+        f"forecast {sum(h['forecast_s'] for h in hist):.2f} s, ILP "
+        f"{sum(h['ilp_s'] for h in hist):.2f} s")
+    lengths = sorted({f["y"].shape[1] for f in run["fits"]})
+    fit_s = sum(f["events"][0].elapsed_time(f["events"][1])
+                for f in run["fits"]) / 1e3
+    log(f"  fitted row lengths {lengths[0]}..{lengths[-1]} "
+        f"({len(lengths)} distinct); the fit calls' device time (kernel "
+        f"and its parameter upload, CUDA events) {fit_s:.3f} s, "
+        f"{fit_s / run['wall']:.1%} of the run's wall time")
+    if not (total == run["requests"] and done > 0 and engine.unique_fits > 0
+            and launches["arma_fit"] == engine.batches > 0
+            and engine.device.type == "cuda"):
+        raise SystemExit("simulate: the run did not complete or did not fit "
+                         "on the kernel")
+    if any(n for k, n in launches.items() if k != "arma_fit"):
+        raise SystemExit(f"simulate: unexpected launches {launches}")
+
+
+def replay_plain(run) -> dict:
+    """Every boundary again with the fit's plain version on the host: the
+    engine from the same warm parameters, its parameters against the
+    kernel's, and the ILP targets of its forecasts against the run's."""
+    from repro_torch.control import forecast
+
+    planner, engine = run["stack"].planner, run["stack"].planner.engine
+    cfg = planner.cfg
+    out = dict(keys=0, equal=0, diverged=0, max_abs_err=0.0, targets=0,
+               flips=0, peak_rel=0.0, seasonal=0, longest=0)
+    forecast.clear_fit_cache()
+    t0 = time.perf_counter()
+    for rec in run["boundaries"]:
+        cpu = forecast.BatchForecastEngine(
+            p=engine.p, d=engine.d, q=engine.q,
+            seasonal_period=engine.seasonal_period,
+            fit_steps=engine.fit_steps, device="cpu")
+        cpu._warm = copy.deepcopy(rec["warm_before"])
+        fitted = cpu.fit_forecast(rec["history"], cfg.horizon_windows)
+        for key, prm in rec["warm_after"].items():
+            got = np.concatenate([np.ravel(prm[n])
+                                  for n in forecast.PARAM_NAMES])
+            want = np.concatenate([np.ravel(cpu._warm[key][n])
+                                   for n in forecast.PARAM_NAMES])
+            out["keys"] += 1
+            out["equal"] += bool(np.array_equal(got, want, equal_nan=True))
+            out["diverged"] += not np.isfinite(got).all()
+            err = np.abs(got - want)
+            if np.isnan(err).any() and not np.array_equal(
+                    np.isnan(got), np.isnan(want)):
+                err = np.array([np.inf])
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     float(np.nanmax(err, initial=0.0)))
+        n = max((len(h) for h in rec["history"].values()), default=0)
+        out["seasonal"] += engine._seasonal_for(engine._fit_len(n)) > 0
+        out["longest"] = max(out["longest"], engine._fit_len(n))
+        plain = planner.plan(rec["now"], rec["instances"], rec["history"],
+                             rec["niw"], fitted=fitted)
+        for key, target in rec["plan"].targets.items():
+            out["targets"] += 1
+            out["flips"] += plain.targets[key] != target
+            ref = rec["plan"].forecasts[key]
+            out["peak_rel"] = max(out["peak_rel"], abs(
+                plain.forecasts[key] - ref) / max(abs(ref), 1.0))
+    log(f"  plain replay of {len(run['boundaries'])} boundaries "
+        f"({out['seasonal']} seasonal, longest fit window {out['longest']} "
+        f"buckets) in {time.perf_counter() - t0:.1f} s: {out['equal']} of "
+        f"{out['keys']} fitted parameter sets bit-identical (max abs err "
+        f"{out['max_abs_err']:.3e}, tol {ARMA_ATOL:g}; {out['diverged']} "
+        f"diverged to inf/nan on both, which the planner replaces by the "
+        f"observed peak); {out['flips']} of "
+        f"{out['targets']} ILP instance targets changed; forecast peaks "
+        f"rel diff up to {out['peak_rel']:.3e}")
+    if not (out["keys"] and out["equal"] == out["keys"] and out["seasonal"]
+            and out["flips"] == 0):
+        raise SystemExit("simulate: the fit kernel disagrees with its plain "
+                         "version on the run's own inputs")
+    return out
+
+
+def arma_bound(rows, length, p, q, steps):
+    """(operations, bytes, dependency-chain steps) of one fit launch:
+    per point and step, the residual (1 + 2p + 2q ops), its square sum
+    (2), p+q+1 sensitivity chains (2q each) and their sums (2 each); the
+    rows read once, init read and params written, the losses written."""
+    k = p + 1 + q
+    per_point = 1 + 2 * p + 2 * q + 2 + k * 2 * q + 2 * k
+    return (rows * steps * length * per_point,
+            4 * (rows * length + 2 * rows * k + rows), steps * length)
+
+
+def time_arma(dev, run, errs, launches, replay):
+    """The fit kernel at the run's longest fitted rows: CUDA events (L2
+    flushed), its plain version on the host, its bound and the chain
+    floor of the simple design."""
+    from repro_torch.kernels import arma_fit
+
+    fit = max(run["fits"], key=lambda f: (f["y"].shape[1], f["y"].shape[0]))
+    y, p, q, steps = fit["y"], fit["p"], fit["q"], fit["steps"]
+    init = torch.from_numpy(fit["init"]).to(dev)
+    flush = L2Flush(dev)
+    t_kernel = time_ms(lambda: arma_fit.arma_fit(y, init, p, q, steps,
+                                                 fit["lr"]), flush, reps=5)
+    t0 = time.perf_counter()
+    arma_plain(y, init, p, q, steps, fit["lr"])
+    t_plain = (time.perf_counter() - t0) * 1e3
+    del flush
+    ops, nbytes, chain = arma_bound(y.shape[0], y.shape[1], p, q, steps)
+    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    clock_mhz = float(smi_line("clocks.max.sm").split()[0])
+    chain_ms = chain * FMA_LATENCY_CYCLES / (clock_mhz * 1e6) * 1e3
+    shape = (f"lt-ua+plan run, longest rows: S={y.shape[0]} L={y.shape[1]} "
+             f"p={p} q={q} steps={steps} fp32")
+    log(f"  arma_fit         {shape}: kernel {t_kernel:.4f} ms, plain "
+        f"{t_plain:.1f} ms (host), library n/a, bound "
+        f"{max(t_ops, t_bytes):.4f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}), chain floor "
+        f"{chain_ms:.4f} ms ({steps} x {y.shape[1]} x {FMA_LATENCY_CYCLES} "
+        f"cycles at {clock_mhz:.0f} MHz)")
+    return dict(
+        name="arma_fit", route="cuda",
+        source="src/repro_torch/kernels/csrc/arma_fit.cu",
+        replaces="src/repro/control/forecast.py:145",
+        launches=launches["arma_fit"],
+        max_abs_err=max(errs["arma_fit"], replay["max_abs_err"]),
+        ms=t_kernel, plain_ms=t_plain, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, chain_floor_ms=chain_ms, shape=shape,
+        plain_on="host (float32 numpy/scipy)",
+        launches_by_run={"lt-ua+plan": launches["arma_fit"]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -697,6 +1016,13 @@ def main() -> int:
         if row["launches"] <= 0:
             raise SystemExit(f"{row['name']} never launched on the served "
                              f"paths")
+
+    log(f"[simulate] lt-ua+plan, event loop, {SIM_WORKLOAD['days']:g} days, "
+        f"forecast fits on the card")
+    run, sim_launches = simulate(dev)
+    report_simulation(run, sim_launches)
+    replay = replay_plain(run)
+    rows.append(time_arma(dev, run, errs, sim_launches, replay))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

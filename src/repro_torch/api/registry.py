@@ -29,10 +29,14 @@ KINDS = ("router", "scaler", "forecaster", "scheduler", "queue", "planner")
 _REGISTRY: Dict[str, Dict[str, Callable]] = {k: {} for k in KINDS}
 
 # Modules whose import registers the built-in components of each kind.
-# Only the schedulers are ported so far; the other kinds' modules join
-# this tuple as they are ported.
 _BUILTIN_MODULES = (
+    "repro_torch.control.routing",
+    "repro_torch.core.scaling",
+    "repro_torch.core.chiron",
+    "repro_torch.control.forecast",
     "repro_torch.core.scheduling",
+    "repro_torch.core.queue_manager",
+    "repro_torch.control.planner",
 )
 _builtins_loaded = False
 

@@ -34,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "arma_fit")
 #: input types the kernels take, and their code in the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

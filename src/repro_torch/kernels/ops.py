@@ -8,6 +8,7 @@ module's ``LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import arma_fit as _arma
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
@@ -33,3 +34,11 @@ def ssd_state_scan(states, decay, s0):
     """states: (b,c,h,p,n); decay: (b,c,h); s0: (b,h,p,n); all fp32."""
     fn = _ssd.ssd_state_scan if states.is_cuda else ref.ssd_state_scan_ref
     return fn(states, decay, s0)
+
+
+def arma_fit(y, init, p: int, q: int, steps: int, lr: float):
+    """y: (S, L); init: (S, p+1+q) packed (c, phi, theta); both fp32."""
+    if y.is_cuda:
+        return _arma.arma_fit(y, init, p, q, steps, lr)
+    _arma.check_args(y, init, p, q, steps)
+    return ref.arma_fit_ref(y, init, p, q, steps, lr)

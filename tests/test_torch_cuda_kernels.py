@@ -10,7 +10,9 @@ Tolerances: attention fp32 2e-5 (both sides compute in fp32, no TF32),
 bf16 3e-2 (one bf16 ulp of outputs up to 4 in magnitude, both sides
 accumulating in fp32); the SSD state scan (K3) atol 1e-6, the reference
 sweep's, though kernel and plain version round the same two ops and
-agree bit for bit.
+agree bit for bit; the ARMA fit 0: kernel and plain version round every
+op alike, and near an optimum Adam amplifies any rounding difference
+into a different trajectory, so only bit equality is a meaningful bound.
 """
 import dataclasses
 
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch, reduce_for_smoke
+from repro_torch.kernels import arma_fit as tarma
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
@@ -291,3 +294,92 @@ def test_engine_on_card_matches_cpu(dev):
         assert (launched == (0, 0)) == (where == "cpu")
     assert out["cpu"] == out["cuda"]
     assert np.all([len(t) == 6 for t, _, _ in out["cuda"]])
+
+
+# ------------------------------------------------------------ ARMA fit
+def arma_inputs(dev, rows, length, k, warm, seed):
+    """Rows as the forecast engine fits them (a differenced series with
+    some persistence, normalized), and a zero or a small random init."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((rows, length), generator=gen, device=dev)
+    y = w + 0.6 * torch.roll(w, 1, dims=1) + 0.02 * torch.cumsum(w, 1)
+    if length > 1:
+        y = (y - y.mean(1, keepdim=True)) / (y.std(1, keepdim=True) + 1e-6)
+    init = (0.1 * torch.randn((rows, k), generator=gen, device=dev) if warm
+            else torch.zeros((rows, k), device=dev))
+    return y, init
+
+
+def arma_plain(y, init, p, q, steps):
+    prm, loss = tref.arma_fit_ref(y.cpu(), init.cpu(), p, q, steps, 0.05)
+    return prm.to(y.device), loss.to(y.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 12, 37])
+@pytest.mark.parametrize("length", [1, 8, 255, 2815])
+@pytest.mark.parametrize("p,q", [(1, 1), (2, 1), (2, 2), (3, 1), (2, 0),
+                                 (0, 1)])
+def test_arma_fit_kernel_matches_plain_bit_for_bit(dev, p, q, length, rows):
+    """Kernel and plain version round every op alike (tolerance 0), cold
+    and warm; a diverging row must diverge alike (NaN where NaN)."""
+    for warm in (False, True):
+        y, init = arma_inputs(dev, rows, length, p + 1 + q, warm,
+                              seed=length + rows)
+        prm, loss = tarma.arma_fit(y, init, p, q, 100, 0.05)
+        want_prm, want_loss = arma_plain(y, init, p, q, 100)
+        assert prm.shape == want_prm.shape and loss.shape == (rows,)
+        assert torch.equal(prm.isnan(), want_prm.isnan())
+        assert torch.equal(prm.nan_to_num(), want_prm.nan_to_num()), warm
+        assert torch.equal(loss.nan_to_num(), want_loss.nan_to_num()), warm
+
+
+@pytest.mark.cuda
+def test_arma_fit_kernel_rows_are_pure_and_repeat(dev):
+    """A row's bits: the same in repeats, alone, in a batch and permuted
+    (the forecast engine's dedupe and fit cache rest on it)."""
+    y, init = arma_inputs(dev, 37, 2815, 4, True, seed=3)
+    prm, loss = tarma.arma_fit(y, init, 2, 1, 150, 0.05)
+    again = tarma.arma_fit(y, init, 2, 1, 150, 0.05)
+    assert torch.equal(again[0], prm) and torch.equal(again[1], loss)
+    perm = torch.randperm(37, generator=torch.Generator().manual_seed(1))
+    perm = perm.to(dev)
+    permuted = tarma.arma_fit(y[perm], init[perm], 2, 1, 150, 0.05)
+    assert torch.equal(permuted[0], prm[perm])
+    for i in (0, 17, 36):
+        alone = tarma.arma_fit(y[i:i + 1], init[i:i + 1], 2, 1, 150, 0.05)
+        assert torch.equal(alone[0][0], prm[i])
+        assert torch.equal(alone[1][0], loss[i])
+
+
+@pytest.mark.cuda
+def test_arma_fit_kernel_strided_rows_and_all_orders(dev):
+    """Rows read through a row stride (a view of wider rows) and every
+    order with p + q <= 8 (each its own instantiation)."""
+    y, init = arma_inputs(dev, 5, 300, 4, True, seed=9)
+    wide = torch.zeros((5, 400), device=dev)
+    wide[:, :300] = y
+    got = tarma.arma_fit(wide[:, :300], init, 2, 1, 30, 0.05)
+    want = tarma.arma_fit(y, init, 2, 1, 30, 0.05)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for p in range(9):
+        for q in range(9 - p):
+            y, init = arma_inputs(dev, 3, 64, p + 1 + q, True, seed=p * 9 + q)
+            prm, loss = tarma.arma_fit(y, init, p, q, 20, 0.05)
+            want_prm, want_loss = arma_plain(y, init, p, q, 20)
+            assert torch.equal(prm.nan_to_num(), want_prm.nan_to_num()), (p,
+                                                                          q)
+            assert torch.equal(loss.nan_to_num(), want_loss.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_arma_fit_kernel_rejects_what_it_does_not_take(dev):
+    y = torch.zeros((2, 16), device=dev)
+    with pytest.raises(ValueError, match="p \\+ q"):
+        tarma.arma_fit(y, torch.zeros((2, 10), device=dev), 5, 4, 10, 0.05)
+    with pytest.raises(ValueError, match="float32"):
+        tarma.arma_fit(y.double(), torch.zeros((2, 4), device=dev), 2, 1,
+                       10, 0.05)
+    with pytest.raises(ValueError, match="row length"):
+        tarma.arma_fit(torch.zeros((2, tarma.MAX_LEN + 1), device=dev),
+                       torch.zeros((2, 4), device=dev), 2, 1, 10, 0.05)
