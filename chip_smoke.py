@@ -52,8 +52,13 @@ which must pass for the run to exit 0:
 
 The ARMA fit kernel (``arma_fit``) is also checked in phase 3 against
 its plain version bit for bit: orders (1,1), (2,1), (2,2), (3,1), (2,0),
-(0,1), rows of 1 to 2,815 points, cold and warm inits, repeats, and a
-row alone, in a batch and permuted.
+(0,1) and, at p + q = 8, (3,5), (0,8), (8,0); rows at the edges of its
+chunk layout (one chunk of 256 T consecutive points a thread): 1, 8 and
+255 points (a point a chunk), 257, 511, 2,815 and 2,817 (256 T +- 1)
+and the longest row the wrapper takes; cold and warm
+inits, repeats, and a row alone, in a batch and permuted.  After the
+simulation it is timed at the run's longest rows and at 8 replicas of
+them (the batch a fleet of replicas fits at once).
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
@@ -111,7 +116,13 @@ SIM_WORKLOAD = dict(days=3.0, scale=0.05, seed=0)
 SIM_PLANNER = {"min_instances": 2, "epsilon": 0.8, "fit_steps": 150,
                "theta_headroom": 0.7, "use_routing": True}
 ARMA_ATOL = 0.0
-ARMA_ORDERS = ((1, 1), (2, 1), (2, 2), (3, 1), (2, 0), (0, 1))
+ARMA_ORDERS = ((1, 1), (2, 1), (2, 2), (3, 1), (2, 0), (0, 1), (3, 5),
+               (0, 8), (8, 0))
+#: row lengths of the edge cases: "longest" is the wrapper's limit,
+#: fitted with ARMA_LONGEST_STEPS Adam steps (host time)
+ARMA_LENGTHS = (1, 8, 255, 257, 511, 2815, 2817, "longest")
+ARMA_LONGEST_STEPS = 20
+ARMA_REPLICAS = 8        # the timed batch of replicas of the run's rows
 FMA_LATENCY_CYCLES = 4   # one dependent fp32 FMA on Hopper
 
 
@@ -144,21 +155,32 @@ def time_ms(fn, flush, reps: int = 10, warmup: int = 2) -> float:
     flushed before each.  A spin kernel runs between the flush and the
     start event, so the host has enqueued the whole call before the
     device reaches it: the events time device work, not the host's
-    Python and launch overhead."""
+    Python and launch overhead.  A call whose start event the device
+    has already passed once the call is enqueued was timed with the host
+    in it: it is dropped and the spin doubled."""
     for _ in range(warmup):
         fn()
-    total = 0.0
-    for _ in range(reps):
+    spin, times = SPIN_CYCLES, []
+    while len(times) < reps:
         flush()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
+        outran = start.query()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        if not outran:
+            times.append(start.elapsed_time(end))
+        elif spin < 64 * SPIN_CYCLES:
+            spin *= 2
+            log(f"  [time] the device left the spin before the call was "
+                f"enqueued: call dropped, spin doubled to {spin} cycles")
+        else:
+            raise SystemExit("time_ms: the host outran a spin of "
+                             f"{spin} cycles")
+    return sum(times) / reps
 
 
 def profiled(label: str, fn):
@@ -378,23 +400,26 @@ def arma_plain(y, init, p, q, steps, lr=0.05):
 
 def check_arma(dev, gen, errs, steps=150):
     """The ARMA fit kernel against its plain version, bit for bit: every
-    order of ``ARMA_ORDERS``, rows of 1, 8, 255 and 2,815 points (the
-    unseasoned maximum), 12 rows, cold and warm inits; then repeats and a
-    row alone, in a batch and permuted, at 37 rows."""
+    order of ``ARMA_ORDERS`` at every length of ``ARMA_LENGTHS`` (2,815
+    is the run's unseasoned maximum), 12 rows, cold and warm inits; then
+    repeats and a row alone, in a batch and permuted, at 37 rows."""
     from repro_torch.kernels import arma_fit
 
     failed = []
     for p, q in ARMA_ORDERS:
         k = p + 1 + q
-        for length in (1, 8, 255, 2815):
+        for length in ARMA_LENGTHS:
+            n_steps = steps
+            if length == "longest":
+                length, n_steps = arma_fit.MAX_LEN, ARMA_LONGEST_STEPS
             y = arma_rows(dev, gen, 12, length)
             for warm in (False, True):
                 init = (0.1 * torch.randn((12, k), generator=gen, device=dev)
                         if warm else torch.zeros((12, k), device=dev))
                 got = torch.cat([t.flatten() for t in arma_fit.arma_fit(
-                    y, init, p, q, steps, 0.05)])
+                    y, init, p, q, n_steps, 0.05)])
                 want = torch.cat([t.flatten() for t in arma_plain(
-                    y, init, p, q, steps)])
+                    y, init, p, q, n_steps)])
                 failed += report("arma_fit", f"p={p} q={q} L={length} "
                                  f"{'warm' if warm else 'cold'}",
                                  torch.float32, got, want, errs, ARMA_ATOL,
@@ -902,7 +927,9 @@ def arma_bound(rows, length, p, q, steps):
     """(operations, bytes, dependency-chain steps) of one fit launch:
     per point and step, the residual (1 + 2p + 2q ops), its square sum
     (2), p+q+1 sensitivity chains (2q each) and their sums (2 each); the
-    rows read once, init read and params written, the losses written."""
+    rows read once, init read and params written, the losses written.
+    The chain is that of a walk over t one point at a time (the
+    sequential design's floor, not the blocked scan's)."""
     k = p + 1 + q
     per_point = 1 + 2 * p + 2 * q + 2 + k * 2 * q + 2 * k
     return (rows * steps * length * per_point,
@@ -910,44 +937,51 @@ def arma_bound(rows, length, p, q, steps):
 
 
 def time_arma(dev, run, errs, launches, replay):
-    """The fit kernel at the run's longest fitted rows: CUDA events (L2
-    flushed), its plain version on the host, its bound and the chain
-    floor of the simple design."""
+    """The fit kernel at the run's longest fitted rows, and at
+    ``ARMA_REPLICAS`` copies of them: CUDA events (L2 flushed), its plain
+    version on the host, its bound and the sequential chain floor."""
     from repro_torch.kernels import arma_fit
 
     fit = max(run["fits"], key=lambda f: (f["y"].shape[1], f["y"].shape[0]))
-    y, p, q, steps = fit["y"], fit["p"], fit["q"], fit["steps"]
-    init = torch.from_numpy(fit["init"]).to(dev)
-    flush = L2Flush(dev)
-    t_kernel = time_ms(lambda: arma_fit.arma_fit(y, init, p, q, steps,
-                                                 fit["lr"]), flush, reps=5)
-    t0 = time.perf_counter()
-    arma_plain(y, init, p, q, steps, fit["lr"])
-    t_plain = (time.perf_counter() - t0) * 1e3
-    del flush
-    ops, nbytes, chain = arma_bound(y.shape[0], y.shape[1], p, q, steps)
-    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    p, q, steps, lr = fit["p"], fit["q"], fit["steps"], fit["lr"]
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
-    chain_ms = chain * FMA_LATENCY_CYCLES / (clock_mhz * 1e6) * 1e3
-    shape = (f"lt-ua+plan run, longest rows: S={y.shape[0]} L={y.shape[1]} "
-             f"p={p} q={q} steps={steps} fp32")
-    log(f"  arma_fit         {shape}: kernel {t_kernel:.4f} ms, plain "
-        f"{t_plain:.1f} ms (host), library n/a, bound "
-        f"{max(t_ops, t_bytes):.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}), chain floor "
-        f"{chain_ms:.4f} ms ({steps} x {y.shape[1]} x {FMA_LATENCY_CYCLES} "
-        f"cycles at {clock_mhz:.0f} MHz)")
+    flush = L2Flush(dev)
+    shapes = []
+    for copies in (1, ARMA_REPLICAS):
+        y = fit["y"].repeat(copies, 1)
+        init = torch.from_numpy(fit["init"]).to(dev).repeat(copies, 1)
+        t_kernel = time_ms(lambda: arma_fit.arma_fit(y, init, p, q, steps,
+                                                     lr), flush, reps=5)
+        t0 = time.perf_counter()
+        arma_plain(y, init, p, q, steps, lr)
+        t_plain = (time.perf_counter() - t0) * 1e3
+        ops, nbytes, chain = arma_bound(y.shape[0], y.shape[1], p, q, steps)
+        t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        chain_ms = chain * FMA_LATENCY_CYCLES / (clock_mhz * 1e6) * 1e3
+        what = ("lt-ua+plan run, longest rows" if copies == 1 else
+                f"{copies} replicas of the run's longest rows")
+        shape = (f"{what}: S={y.shape[0]} L={y.shape[1]} p={p} q={q} "
+                 f"steps={steps} fp32")
+        log(f"  arma_fit         {shape}: kernel {t_kernel:.4f} ms, plain "
+            f"{t_plain:.1f} ms (host), library n/a, bound "
+            f"{max(t_ops, t_bytes):.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}), sequential "
+            f"chain floor {chain_ms:.4f} ms ({steps} x {y.shape[1]} x "
+            f"{FMA_LATENCY_CYCLES} cycles at {clock_mhz:.0f} MHz)")
+        shapes.append(dict(
+            ms=t_kernel, plain_ms=t_plain, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, chain_floor_ms=chain_ms, shape=shape))
+    del flush
     return dict(
         name="arma_fit", route="cuda",
         source="src/repro_torch/kernels/csrc/arma_fit.cu",
         replaces="src/repro/control/forecast.py:145",
         launches=launches["arma_fit"],
         max_abs_err=max(errs["arma_fit"], replay["max_abs_err"]),
-        ms=t_kernel, plain_ms=t_plain, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None, chain_floor_ms=chain_ms, shape=shape,
-        plain_on="host (float32 numpy/scipy)",
+        **shapes[0], other_shapes=shapes[1:],
+        plain_on="host (float32 numpy)",
         launches_by_run={"lt-ua+plan": launches["arma_fit"]})
 
 

@@ -2,10 +2,11 @@
 
 Port of the JAX program ``repro.control.forecast._fit_arma_batch`` (a
 vmap of ``lax.scan`` Adam steps over ``value_and_grad`` of the
-``lax.scan`` CSS recursion).  One block fits one row with every Adam
-step inside the kernel; rows never interact, so a row's parameters are
-the same bits alone, in any batch and in any order.  This wrapper only
-launches: it raises for tensors that are not on a CUDA device.
+``lax.scan`` CSS recursion).  One block of 256 threads fits one row with
+every Adam step inside the kernel, by a blocked scan over the row's
+chunks (``ref.arma_chunks``); rows never interact, so a row's parameters
+are the same bits alone, in any batch and in any order.  This wrapper
+only launches: it raises for tensors that are not on a CUDA device.
 ``ops.arma_fit`` picks between it and the plain version,
 ``ref.arma_fit_ref``.
 """
@@ -16,23 +17,45 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
 #: largest p + q the kernel is instantiated for
 MAX_ORDER = 8
-#: longest row: the row is held in shared memory (227 KB a block)
-MAX_LEN = 232_448 // 4
+#: shared memory a block may use (227 KB)
+SMEM_BYTES = 232_448
+
+
+def _head(p: int, q: int) -> int:
+    """Floats of shared memory beside the row at order (p, q): the powers
+    of M (6 of q x q), the two scans' warp totals (8 warps x (p+3) q),
+    the reduction (8 warps x (p+q+2)) and the parameters, as
+    ``csrc/arma_fit.cu``'s ``Layout`` places them."""
+    k = p + 1 + q
+    warps = ref.ARMA_THREADS // 32
+    return 6 * q * q + warps * (p + 3) * q + warps * (k + 1) + k
+
+
+#: longest row at every order: the row sits in shared memory beside the
+#: largest of those heads
+MAX_LEN = SMEM_BYTES // 4 - max(_head(p, MAX_ORDER - p)
+                                for p in range(MAX_ORDER + 1))
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load("arma_fit").arma_fit
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=64)
+def _bias(steps: int, device: torch.device):
+    """Adam's bias corrections (``ref.adam_bias``) on the device."""
+    return torch.from_numpy(ref.adam_bias(steps)).to(device)
 
 
 def check_args(y, init, p: int, q: int, steps: int) -> None:
@@ -76,9 +99,10 @@ def arma_fit(y, init, p: int, q: int, steps: int, lr: float):
         return params, loss
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = _fn()(y.data_ptr(), init.data_ptr(), params.data_ptr(),
-                    loss.data_ptr(), n_rows, length, y.stride(0), p, q,
-                    steps, lr, stream)
+        bias = _bias(steps, y.device)
+        err = _fn()(y.data_ptr(), init.data_ptr(), bias.data_ptr(),
+                    params.data_ptr(), loss.data_ptr(), n_rows, length,
+                    y.stride(0), p, q, steps, lr, stream)
     _build.check(err, "arma_fit")
     LAUNCHES += 1
     return params, loss

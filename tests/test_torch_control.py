@@ -9,11 +9,12 @@ planner's 150 Adam steps, lands elsewhere on sparse series
 (``tests/test_torch_forecast.py``).  A changed forecast peak can flip an
 ILP instance target, so the test counts the flips over every hourly
 plan and prints them.  Measured on the CPU, on
-``tests/test_control_parity.py``'s 2-day ``scale=0.005, seed=7`` trace:
-3 of the 53 x 12 targets flip (bloom-176b in westus at hour 3,
-llama2-70b in centralus at hour 25, bloom-176b in centralus at hour 49:
-sparse series where one warm-started fit chain drifts to an unstable
-forecast), and the Reports still agree field for field.  Held to: at most 1% of targets flipped (``MAX_FLIPS``), GPU
+``tests/test_control_parity.py``'s 2-day ``scale=0.005, seed=7`` trace,
+with the fit's blocked-scan order: 3 of the 53 x 12 targets flip
+(bloom-176b in eastus at hour 15, in centralus at hour 33 and in westus
+at hour 52: sparse series where one warm-started fit chain drifts to an
+unstable forecast; the sequential order before it also flipped 3), and
+the Reports still agree field for field.  Held to: at most 1% of targets flipped (``MAX_FLIPS``), GPU
 instance-hours per endpoint and dollars within rel 1% (``HOURS_RTOL``), SLA
 violation fractions per tier within 0.005 (``SLA_ATOL``).
 """

@@ -317,17 +317,24 @@ def arma_plain(y, init, p, q, steps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 12, 37])
-@pytest.mark.parametrize("length", [1, 8, 255, 2815])
+@pytest.mark.parametrize("length", [1, 8, 255, 257, 511, 2815, 2817,
+                                    "longest"])
 @pytest.mark.parametrize("p,q", [(1, 1), (2, 1), (2, 2), (3, 1), (2, 0),
-                                 (0, 1)])
+                                 (0, 1), (0, 0), (3, 5), (0, 8), (8, 0)])
 def test_arma_fit_kernel_matches_plain_bit_for_bit(dev, p, q, length, rows):
     """Kernel and plain version round every op alike (tolerance 0), cold
-    and warm; a diverging row must diverge alike (NaN where NaN)."""
+    and warm; a diverging row must diverge alike (NaN where NaN).  The
+    lengths sit at the chunk edges: one point, fewer points than threads
+    (a point a chunk), 256 T +- 1 (a ragged last chunk, a chunk more) and
+    the longest row the wrapper takes (10 steps there)."""
+    steps = 100
+    if length == "longest":
+        length, steps = tarma.MAX_LEN, 10
     for warm in (False, True):
         y, init = arma_inputs(dev, rows, length, p + 1 + q, warm,
                               seed=length + rows)
-        prm, loss = tarma.arma_fit(y, init, p, q, 100, 0.05)
-        want_prm, want_loss = arma_plain(y, init, p, q, 100)
+        prm, loss = tarma.arma_fit(y, init, p, q, steps, 0.05)
+        want_prm, want_loss = arma_plain(y, init, p, q, steps)
         assert prm.shape == want_prm.shape and loss.shape == (rows,)
         assert torch.equal(prm.isnan(), want_prm.isnan())
         assert torch.equal(prm.nan_to_num(), want_prm.nan_to_num()), warm
