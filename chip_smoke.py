@@ -50,6 +50,32 @@ which must pass for the run to exit 0:
    parameters must equal the kernel's bit for bit, and the ILP targets
    its forecasts give are counted against the run's.
 
+6. vector: the paper's main path on the vector engine.
+   ``run_experiment(ExperimentSpec(engine="vector"), device=cuda)`` over
+   the same 3-day trace with the seven strategies of the reference's
+   benchmarks (siloed, reactive, LT-I, LT-U, LT-UA, ``lt-ua+plan``,
+   chiron): the unified stacks step as one batch of 6 replicas, siloed
+   alone, every segment of buckets one launch of the ``bucket_step``
+   kernel (the launch count must equal the segments) and every hourly
+   boundary's forecast fits one ``arma_fit`` batch across the fleet.
+   Each Report is printed; the vector ``lt-ua+plan`` Report must lie
+   within the reference's vector-vs-event tolerance of phase 5's (0.02
+   completion, 10% GPU-hours and dollars); the segments of the first
+   simulated day are replayed through the plain step on the card and
+   must equal the kernel's bit for bit.  Then ``bucket_step`` is timed
+   at a 240-bucket segment (an hour between two boundaries) for one
+   replica and for 8, beside its byte bound, the chain floor of its
+   barrier phases, the eager plain step and the plain step captured in
+   a CUDA graph (a measurement only).
+
+The bucket step is also checked in phase 3 against its plain version bit
+for bit on seeded segments (``bucket_step.synthetic_case``): one replica
+and one bucket, every mode in one batch, unified and siloed pools, 8
+models x 2 pools (48 cells, more than a warp), 8 replicas, a ring
+collision (a cell's swap, local and remote delays equal), a region down,
+a dead model past its drop budget, no plan rows, a segment that wraps
+the ring; then a replica alone, in a permuted batch, and a repeat.
+
 The ARMA fit kernel (``arma_fit``) is also checked in phase 3 against
 its plain version bit for bit: orders (1,1), (2,1), (2,2), (3,1), (2,0),
 (0,1) and, at p + q = 8, (3,5), (0,8), (8,0); rows at the edges of its
@@ -124,6 +150,33 @@ ARMA_LENGTHS = (1, 8, 255, 257, 511, 2815, 2817, "longest")
 ARMA_LONGEST_STEPS = 20
 ARMA_REPLICAS = 8        # the timed batch of replicas of the run's rows
 FMA_LATENCY_CYCLES = 4   # one dependent fp32 FMA on Hopper
+# The vector engine (phase 6): the seven strategies of
+# benchmarks/common.py:115-142 (stack_spec(BenchSpec(), s)), written out:
+# that module imports jax.  The bucket step's kernel and plain version do
+# the same float32 ops in the same order (BUCKET_ATOL = 0).
+VECTOR_STRATEGIES = ("siloed", "reactive", "lt-i", "lt-u", "lt-ua",
+                     "lt-ua+plan", "chiron")
+BUCKET_ATOL = 0.0
+#: edge cases of the bucket step (bucket_step.synthetic_case arguments;
+#: b0 where the segment starts)
+BUCKET_CASES = (
+    ("R=1, one bucket", dict(seed=1, modes=("lt-ua",), buckets=1)),
+    ("R=1, reactive", dict(seed=2, modes=("reactive",))),
+    ("R=5, every mode, unified", dict(seed=3, modes="all")),
+    ("R=5, every mode, siloed", dict(seed=4, modes="all", P=2)),
+    ("R=8, C*J=48 (8 models x 2 pools)", dict(seed=5, modes="all+3", M=8,
+                                              P=2)),
+    ("ring collision", dict(seed=6, modes="all", collide=True)),
+    ("region down", dict(seed=7, modes="all", down=True)),
+    ("dead model past its budget", dict(seed=8, modes="all", dead=True)),
+    ("no plan rows", dict(seed=9, modes="all", plan=False)),
+    ("wraps the ring", dict(seed=10, modes="all", b0=3 * 481 - 100)),
+)
+COMPLETION_ABS_TOL = 0.02   # vector vs event loop: tests/test_vector_sim.py
+HOURS_REL_TOL = 0.10
+BARRIER_CYCLES = 20      # one __syncthreads of 256 threads (assumed)
+BUCKET_BARRIERS = 12     # barrier phases of one bucket in bucket_step.cu
+BUCKET_OPS_PER_CELL = 250   # float ops of one cell and bucket (counted)
 
 
 def log(msg: str) -> None:
@@ -348,7 +401,7 @@ def check_kernels(dev):
                                 strided=True)),
     ]
     errs = {"flash_attention": 0.0, "decode_attention": 0.0,
-            "ssd_scan": 0.0, "arma_fit": 0.0}
+            "ssd_scan": 0.0, "arma_fit": 0.0, "bucket_step": 0.0}
     failed = []
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[dtype]
@@ -375,6 +428,7 @@ def check_kernels(dev):
         if not torch.equal(prev[:, 0], args[2]):
             failed.append(f"ssd_scan {label}: prev[:, 0] is not s0")
     failed += check_arma(dev, gen, errs)
+    failed += check_bucket(dev, errs)
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
     return errs
@@ -985,6 +1039,310 @@ def time_arma(dev, run, errs, launches, replay):
         launches_by_run={"lt-ua+plan": launches["arma_fit"]})
 
 
+# ---------------------------------------------------------------- vector
+def bucket_case(dev, seed, modes, b0=0, **kw):
+    """A seeded segment of the bucket step on the card
+    (``bucket_step.synthetic_case``): (layout, consts, prm, carry, xs,
+    b0, b1)."""
+    from repro_torch.kernels import bucket_step
+
+    every = tuple(bucket_step.MODES)
+    modes = {"all": every, "all+3": every + ("reactive", "lt-ua",
+                                             "chiron")}.get(modes, modes)
+    lay, *arrays = bucket_step.synthetic_case(seed, modes, **kw)
+    consts, prm, carry, xs = (torch.from_numpy(a).to(dev) for a in arrays)
+    return lay, consts, prm, carry, xs, b0, b0 + xs.shape[0]
+
+
+def check_bucket(dev, errs):
+    """The bucket step's kernel against its plain version on the card, bit
+    for bit, on every case of ``BUCKET_CASES``; then a replica alone and
+    in a permuted batch, and a repeat."""
+    from repro_torch.kernels import bucket_step, ref
+
+    failed = []
+    for label, kw in BUCKET_CASES:
+        args = bucket_case(dev, **kw)
+        got = bucket_step.bucket_segment(*args)
+        want = ref.bucket_segment_ref(*args)
+        failed += report("bucket_step", label, torch.float32,
+                         torch.cat([got[0].flatten(), got[1].flatten()]),
+                         torch.cat([want[0].flatten(), want[1].flatten()]),
+                         errs, BUCKET_ATOL, 0.0)
+    lay, consts, prm, carry, xs, b0, b1 = bucket_case(
+        dev, **dict(BUCKET_CASES)["R=5, every mode, unified"])
+    c, y = bucket_step.bucket_segment(lay, consts, prm, carry, xs, b0, b1)
+    again = bucket_step.bucket_segment(lay, consts, prm, carry, xs, b0, b1)
+    perm = torch.tensor([3, 0, 4, 1, 2], device=dev)
+    pc, py = bucket_step.bucket_segment(lay, consts, prm[perm], carry[perm],
+                                        xs, b0, b1)
+    ac, ay = bucket_step.bucket_segment(lay, consts, prm[2:3], carry[2:3],
+                                        xs, b0, b1)
+    checks = {"repeat": torch.equal(again[0], c) and torch.equal(again[1], y),
+              "permuted": torch.equal(pc, c[perm]) and torch.equal(py, y[perm]),
+              "alone": torch.equal(ac[0], c[2]) and torch.equal(ay[0], y[2])}
+    log("  bucket_step      5 replicas x 240 buckets: bit-identical "
+        + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    failed += [f"bucket_step {k}" for k, v in checks.items() if not v]
+    return failed
+
+
+def vector_specs():
+    """The seven strategies of ``benchmarks/common.py:stack_spec`` at
+    ``BenchSpec()``'s defaults (5 initial instances, 30 spot spares,
+    FCFS), written out: that module imports jax."""
+    from repro_torch.api import PolicySpec, StackSpec
+    from repro_torch.sim.workload import PAPER_MODELS, REGIONS
+
+    common = dict(models=PAPER_MODELS, regions=REGIONS, scheduler="fcfs",
+                  spot_spare=30)
+    plan = {k: v for k, v in SIM_PLANNER.items() if k != "use_routing"}
+    out = {"siloed": StackSpec(scaler="reactive", queue=None, siloed=True,
+                               siloed_iw=4, siloed_niw=2,
+                               initial_instances=5, **common),
+           "chiron": StackSpec(scaler=PolicySpec("chiron", {
+               "theta": 0.6, "init_interactive": 3, "init_mixed": 1,
+               "init_batch": 1}), initial_instances=None, **common),
+           "lt-ua+plan": StackSpec(
+               scaler="lt-ua", planner=PolicySpec("sageserve",
+                                                  dict(SIM_PLANNER)),
+               router="plan", initial_instances=5, **common)}
+    for s in ("reactive", "lt-i", "lt-u", "lt-ua"):
+        out[s] = StackSpec(scaler=s, planner=None if s == "reactive" else
+                           PolicySpec("sageserve", dict(plan)),
+                           initial_instances=5, **common)
+    return {s: out[s] for s in VECTOR_STRATEGIES}
+
+
+def vector(dev):
+    """``run_experiment(engine="vector")`` over the 3-day trace of phase
+    5 with the seven strategies, on ``dev``: the unified stacks step as
+    one batch, siloed alone.  Records every segment the engine launches
+    (its input carry, the kernel's outputs and CUDA events around the
+    launch).  Returns the results, the records and the kernel launch
+    counts, set to 0 just before the run and read just after."""
+    from repro_torch.api import ExperimentSpec, run_experiment
+    from repro_torch.control import amortize, forecast
+    from repro_torch.kernels import arma_fit, bucket_step, ops
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.sim.workload import WorkloadSpec
+
+    exp = ExperimentSpec(name="vector", strategies=vector_specs(),
+                         workloads={"3d": WorkloadSpec(**SIM_WORKLOAD)},
+                         engine="vector")
+    segs, segment = [], ops.bucket_segment
+
+    def recorded(lay, consts, prm, carry, xs, b0, b1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = bucket_step.LAUNCHES
+        start.record()
+        out, ys = segment(lay, consts, prm, carry, xs, b0, b1)
+        end.record()
+        segs.append(dict(lay=lay, consts=consts, prm=prm, carry=carry,
+                         xs=xs, b0=b0, b1=b1, out=out, ys=ys,
+                         events=(start, end),
+                         kernel=bucket_step.LAUNCHES - before))
+        return out, ys
+
+    # phase 5 and its replay filled the process-wide fit and ILP caches
+    # with this trace's fits and plans: empty them, so this run fits and
+    # solves its own
+    forecast.clear_fit_cache()
+    amortize.clear_solve_cache()
+    fa.LAUNCHES = dec.LAUNCHES = ssd.LAUNCHES = arma_fit.LAUNCHES = 0
+    bucket_step.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(ops, "bucket_segment", recorded):
+        results = run_experiment(exp, jobs=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.LAUNCHES,
+                "decode_attention": dec.LAUNCHES,
+                "ssd_scan": ssd.LAUNCHES, "arma_fit": arma_fit.LAUNCHES,
+                "bucket_step": bucket_step.LAUNCHES}
+    return dict(results=results, segs=segs, wall=wall), launches
+
+
+def report_vector(vrun, launches, event_run) -> None:
+    """Print each strategy's Report and the batches' control-plane
+    counters; fail unless every segment launched the kernel, every run
+    completed, and the vector ``lt-ua+plan`` Report is within the
+    reference's vector-vs-event tolerance of phase 5's."""
+    results, segs = vrun["results"], vrun["segs"]
+    for r in results:
+        log(f"  {r.strategy:10s} [{r.engine}] GPU-hours "
+            f"{r.total_instance_hours:.2f}, dollars "
+            f"{r.total_gpu_dollars:.2f}, SLA attainment "
+            + ", ".join(f"{t} {r.sla_attainment(t):.5f}"
+                        for t in sorted(r.sla_violations))
+            + f", completed {r.completed_total} of {r.n_requests} "
+            f"({r.completion:.5f})")
+    batches = {}
+    for r in results:
+        ctl = r.extras.get("control")
+        if ctl:
+            batches[ctl["batch"]] = ctl
+    for name, ctl in batches.items():
+        log(f"  batch of {ctl['replicas']} (first {name}): "
+            + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in sorted(ctl.items())
+                        if k not in ("batch", "replicas")))
+    dev_s = sum(g["events"][0].elapsed_time(g["events"][1])
+                for g in segs) / 1e3
+    buckets = sum(g["b1"] - g["b0"] for g in segs)
+    log(f"  {len(results)} runs in {vrun['wall']:.1f} s wall; "
+        f"{len(segs)} segments ({buckets} buckets x their replicas), "
+        f"bucket_step launches {launches['bucket_step']}, arma_fit "
+        f"launches {launches['arma_fit']}; the segments' device time "
+        f"(CUDA events) {dev_s:.3f} s, {dev_s / vrun['wall']:.1%} of the "
+        f"wall time")
+    if not (len(segs) == launches["bucket_step"] > 0
+            and all(g["kernel"] == 1 for g in segs)
+            and all(r.engine == "vector" for r in results)):
+        raise SystemExit("vector: a segment did not run on the kernel")
+    if any(launches[k] for k in ("flash_attention", "decode_attention",
+                                 "ssd_scan")) or not launches["arma_fit"]:
+        raise SystemExit(f"vector: unexpected launches {launches}")
+    if any(r.n_requests != event_run["requests"] or r.completed_total <= 0
+           for r in results):
+        raise SystemExit("vector: a run did not complete")
+    ev = event_run["report"]
+    ev_done = sum(ev.completed.values())
+    ev_frac = ev_done / max(ev_done + sum(ev.dropped.values()), 1)
+    vec = {r.strategy: r for r in results}["lt-ua+plan"]
+    vec_frac = vec.completed_total / max(
+        vec.completed_total + vec.dropped_total, 1)
+    d_frac = vec_frac - ev_frac
+    d_hours = vec.total_instance_hours / ev.total_instance_hours() - 1.0
+    d_dollars = vec.total_gpu_dollars / ev.total_gpu_dollars() - 1.0
+    log(f"  lt-ua+plan, vector vs event loop (phase 5): completion "
+        f"{vec_frac:.5f} vs {ev_frac:.5f} ({d_frac:+.5f}, tol "
+        f"{COMPLETION_ABS_TOL}), GPU-hours {d_hours:+.4%}, dollars "
+        f"{d_dollars:+.4%} (tol {HOURS_REL_TOL:.0%})")
+    if not (abs(d_frac) <= COMPLETION_ABS_TOL
+            and abs(d_hours) <= HOURS_REL_TOL
+            and abs(d_dollars) <= HOURS_REL_TOL):
+        raise SystemExit("vector: lt-ua+plan disagrees with the event loop")
+
+
+def replay_vector(vrun, until_b: int, errs) -> int:
+    """Every recorded segment that starts before bucket ``until_b`` again
+    through the plain step on the card, from its recorded input carry:
+    its outputs must equal the kernel's bit for bit.  A segment that runs
+    past ``until_b`` is cut there (the kernel runs the cut segment again,
+    for its carry).  Returns the buckets replayed."""
+    from repro_torch.kernels import bucket_step, ref
+
+    n, t0, worst = 0, time.perf_counter(), 0.0
+    for g in vrun["segs"]:
+        b0, b1 = g["b0"], min(g["b1"], until_b)
+        if b0 >= until_b:
+            continue
+        args = (g["lay"], g["consts"], g["prm"], g["carry"],
+                g["xs"][:b1 - b0], b0, b1)
+        want_c, want_y = ref.bucket_segment_ref(*args)
+        got_c, got_y = ((g["out"], g["ys"]) if b1 == g["b1"] else
+                        bucket_step.bucket_segment(*args))
+        diff = max(float((got_c - want_c).abs().max()),
+                   float((got_y - want_y).abs().max()))
+        worst = max(worst, diff)
+        if not (torch.equal(got_c, want_c) and torch.equal(got_y, want_y)
+                and torch.equal(got_y, g["ys"][:, :b1 - b0])):
+            raise SystemExit(f"vector: the kernel disagrees with its plain "
+                             f"version on segment [{b0}, {b1}) (max abs "
+                             f"err {diff:.3e})")
+        n += (b1 - b0) * g["carry"].shape[0]
+    errs["bucket_step"] = max(errs["bucket_step"], worst)
+    log(f"  plain replay of the segments before bucket {until_b} (the "
+        f"first simulated day) on the card: {n} replica-buckets "
+        f"bit-identical in {time.perf_counter() - t0:.1f} s (max abs err "
+        f"{worst:.3e}, tol {BUCKET_ATOL:g})")
+    return n
+
+
+def time_bucket(dev, vrun, errs, launches):
+    """The bucket step at a 240-bucket segment of the run (an hour between
+    two control boundaries) for its first replica and for 8 replicas:
+    the kernel (CUDA events, L2 flushed), its plain version on the card,
+    the byte bound and the chain floor of the segment's barrier
+    phases."""
+    from repro_torch.kernels import bucket_step, ref
+
+    g = next(g for g in vrun["segs"]
+             if g["b1"] - g["b0"] == 240 and g["carry"].shape[0] > 1)
+    lay, b0, b1 = g["lay"], g["b0"], g["b1"]
+    clock_mhz = float(smi_line("clocks.max.sm").split()[0])
+    flush = L2Flush(dev)
+    shapes = []
+    for reps in (1, ARMA_REPLICAS):
+        idx = torch.arange(reps, device=dev) % g["carry"].shape[0]
+        args = (lay, g["consts"], g["prm"][idx], g["carry"][idx], g["xs"],
+                b0, b1)
+        t_kernel = time_ms(lambda: bucket_step.bucket_segment(*args), flush,
+                           reps=5)
+        ref.bucket_segment_ref(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ref.bucket_segment_ref(*args)
+        torch.cuda.synchronize()
+        t_plain = (time.perf_counter() - t0) * 1e3
+        # the plain step captured in a CUDA graph: a measurement only,
+        # never the path (one graph per segment and bucket range)
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ref.bucket_segment_ref(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            captured = ref.bucket_segment_ref(*args)
+        graph.replay()             # the host enqueues ~10^5 nodes a replay:
+        torch.cuda.synchronize()   # timed by the host clock, as eager is
+        t0 = time.perf_counter()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        t_graph = (time.perf_counter() - t0) / 3 * 1e3
+        if not (torch.equal(captured[0], want[0])
+                and torch.equal(captured[1], want[1])):
+            raise SystemExit("bucket_step: the captured plain step "
+                             "disagrees with the eager one")
+        del graph, captured
+        S = b1 - b0
+        nbytes = 4 * (S * lay.X + reps * S * lay.Y + 2 * reps * lay.F
+                      + reps * lay.K + lay.NC)
+        ops_n = reps * S * lay.C * lay.J * BUCKET_OPS_PER_CELL
+        t_ops = ops_n / PEAK_FLOPS[torch.float32] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        chain_ms = S * BUCKET_BARRIERS * BARRIER_CYCLES / (clock_mhz * 1e6) \
+            * 1e3
+        shape = (f"{S}-bucket segment [{b0}, {b1}) of the unified batch, "
+                 f"R={reps}, C={lay.C} J={lay.J} L={lay.L} fp32")
+        log(f"  bucket_step      {shape}: kernel {t_kernel:.4f} ms, plain "
+            f"{t_plain:.1f} ms (card, eager, host clock), plain in a CUDA "
+            f"graph {t_graph:.3f} ms (host clock), library n/a, bound "
+            f"{max(t_ops, t_bytes):.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}), chain "
+            f"floor {chain_ms:.4f} ms ({S} x {BUCKET_BARRIERS} barriers x "
+            f"{BARRIER_CYCLES} cycles at {clock_mhz:.0f} MHz)")
+        shapes.append(dict(
+            ms=t_kernel, plain_ms=t_plain, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, chain_floor_ms=chain_ms, plain_graph_ms=t_graph,
+            shape=shape))
+    del flush
+    return dict(
+        name="bucket_step", route="cuda",
+        source="src/repro_torch/kernels/csrc/bucket_step.cu",
+        replaces="src/repro/sim/vector/engine.py:120",
+        launches=launches["bucket_step"], max_abs_err=errs["bucket_step"],
+        **shapes[0], other_shapes=shapes[1:],
+        plain_on="card (eager PyTorch, one op at a time)",
+        launches_by_run={"vector (7 strategies)": launches["bucket_step"]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1057,6 +1415,18 @@ def main() -> int:
     report_simulation(run, sim_launches)
     replay = replay_plain(run)
     rows.append(time_arma(dev, run, errs, sim_launches, replay))
+
+    log(f"[vector] run_experiment(engine=\"vector\"), "
+        f"{len(VECTOR_STRATEGIES)} strategies over the same trace, every "
+        f"segment on the bucket_step kernel")
+    vrun, vec_launches = vector(dev)
+    report_vector(vrun, vec_launches, run)
+    replay_vector(vrun, int(round(86400.0 / 15.0)), errs)
+    rows.append(time_bucket(dev, vrun, errs, vec_launches))
+    for row in rows:
+        if row["name"] == "arma_fit":
+            row["launches_by_run"]["vector (7 strategies)"] = \
+                vec_launches["arma_fit"]
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

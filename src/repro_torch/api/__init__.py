@@ -4,9 +4,9 @@ The import surface is layered to stay cycle-free: ``registry``,
 ``protocols``, ``signals`` and ``spec`` load eagerly (core modules
 import them to register components); the stack builder — which imports
 the simulator and the core built-ins — loads lazily on first access of
-``build_stack`` / ``ServingStack`` / ``simulate``.  The experiment
-layer (``ExperimentSpec`` / ``run_experiment``) drives the vector
-engine and waits for its port.
+``build_stack`` / ``ServingStack`` / ``simulate``, and the experiment
+layer (``ExperimentSpec`` / ``run_experiment`` / ``ResultSet``, which
+imports the workload generator) likewise on first access.
 """
 from repro_torch.api.capabilities import CAPABILITIES, capability
 from repro_torch.api.plan import (PlacementAction, PlacementPlan,
@@ -20,16 +20,18 @@ from repro_torch.api.spec import (OutageWindow, PolicySpec, ScenarioSpec,
                                   StackSpec)
 
 _LAZY_STACK = ("BuildContext", "ServingStack", "build_stack", "simulate")
+_LAZY_EXPERIMENT = ("ExperimentSpec", "ResultSet", "RunResult", "Variant",
+                    "derive_seed", "run_experiment")
 
 __all__ = [
-    "BacklogSignal", "BuildContext", "CAPABILITIES", "Forecaster",
-    "capability",
+    "BacklogSignal", "BuildContext", "CAPABILITIES", "ExperimentSpec",
+    "Forecaster", "capability",
     "GlobalPlanner", "OutageWindow", "PlacementAction", "PlacementPlan",
     "PlacementState", "Plan", "PolicySpec", "QueuePolicy", "RequestLike",
-    "Router", "RoutingPlan", "Scaler",
+    "ResultSet", "Router", "RoutingPlan", "RunResult", "Scaler",
     "ScenarioSpec", "Scheduler", "ServingStack", "Signal", "StackSpec",
-    "UtilizationSignal", "build_stack", "known",
-    "register", "resolve", "simulate",
+    "UtilizationSignal", "Variant", "build_stack", "derive_seed", "known",
+    "register", "resolve", "run_experiment", "simulate",
 ]
 
 
@@ -37,5 +39,8 @@ def __getattr__(name):
     if name in _LAZY_STACK:
         from repro_torch.api import stack
         return getattr(stack, name)
+    if name in _LAZY_EXPERIMENT:
+        from repro_torch.api import experiment
+        return getattr(experiment, name)
     raise AttributeError(
         f"module 'repro_torch.api' has no attribute {name!r}")

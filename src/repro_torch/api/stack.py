@@ -16,9 +16,11 @@ Components are stateful; build a fresh stack per simulation run (sweeps
 re-call ``build_stack`` per grid point, which is cheap).
 
 ``build_stack(spec, device=...)`` names where a stack's forecast fits
-run: the ``sageserve`` planner resolves it (CUDA unless ``"cpu"``) when
-it is built.  A stack without a forecaster touches no device.  The
-device is not part of ``StackSpec``, so spec hashing is unchanged.
+run and its vector segments step: the ``sageserve`` planner resolves it
+(CUDA unless ``"cpu"``) when it is built, ``simulate_vector`` when it
+runs.  The event loop of a stack without a forecaster touches no
+device.  The device is not part of ``StackSpec``, so spec hashing is
+unchanged.
 """
 from __future__ import annotations
 
@@ -68,6 +70,8 @@ class ServingStack:
     queue: Optional[object]
     planner: Optional[object]
     profiles: Dict[str, PerfProfile]
+    # where forecast fits run and vector segments step (CUDA unless "cpu")
+    device: DeviceLike = None
 
     # ----------------------------------------------------------------- sim
     def sim_config(self) -> SimConfig:
@@ -112,11 +116,18 @@ class ServingStack:
         return sim.run()
 
     def simulate_vector(self, trace, name: str = "sim") -> Report:
-        """The vectorized bucket engine (``repro.sim.vector``) is not
-        ported yet: ROADMAP.md, Queue 1, item 3 (vector engine)."""
-        raise NotImplementedError(
-            "simulate_vector: the vector engine is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue 1, item 3)")
+        """Run the same stack on the vectorized bucket engine
+        (``repro_torch.sim.vector``, docs/PERF.md) on the stack's
+        device.  ``trace`` may be a columnar ``Trace`` (preferred — no
+        Request materialization) or a Request sequence.  Raises
+        ``VectorUnsupported`` when a component has no vector lowering."""
+        from repro_torch.sim.vector import VectorSimulation
+        sim = VectorSimulation(trace, self.sim_config(),
+                               models=list(self.spec.models),
+                               regions=list(self.spec.regions),
+                               profiles=self.profiles, name=name,
+                               device=self.device)
+        return sim.run()
 
 
 def build_stack(spec: StackSpec,
@@ -139,6 +150,7 @@ def build_stack(spec: StackSpec,
         queue=resolve("queue", spec.queue, ctx),
         planner=resolve("planner", spec.planner, ctx),
         profiles=dict(profiles),
+        device=device,
     )
 
 

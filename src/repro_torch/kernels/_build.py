@@ -7,7 +7,8 @@ repository root::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
 
-The file name carries a hash of the source, the shared headers
+(``SOURCE_FLAGS`` adds flags for one source: ``--fmad=false`` for the
+bucket step.)  The file name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is
 rebuilt and a stale library is never loaded.  A file with a
 plain C interface builds in seconds, where one that includes PyTorch's
@@ -34,7 +35,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "arma_fit")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "arma_fit",
+           "bucket_step")
+#: flags of one source beside ``NVCC_FLAGS``: the bucket step must round
+#: every multiply and add apart, as its plain version does
+SOURCE_FLAGS = {"bucket_step": ("--fmad=false",)}
 #: input types the kernels take, and their code in the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,8 +58,12 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _flags(name: str):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     digest = h.hexdigest()
@@ -75,7 +84,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -9,6 +9,7 @@ module's ``LAUNCHES`` counts its launches.
 from __future__ import annotations
 
 from repro_torch.kernels import arma_fit as _arma
+from repro_torch.kernels import bucket_step as _bucket
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
@@ -42,3 +43,13 @@ def arma_fit(y, init, p: int, q: int, steps: int, lr: float):
         return _arma.arma_fit(y, init, p, q, steps, lr)
     _arma.check_args(y, init, p, q, steps)
     return ref.arma_fit_ref(y, init, p, q, steps, lr)
+
+
+def bucket_segment(layout, consts, prm, carry, xs, b0: int, b1: int):
+    """Buckets b0..b1-1 of the vector engine for R replicas: consts (NC,),
+    prm (R, K), carry (R, F), xs (S, X), all fp32 packed as ``layout``
+    (``ref.BucketLayout``).  Returns (carry (R, F), ys (R, b1-b0, Y))."""
+    if carry.is_cuda:
+        return _bucket.bucket_segment(layout, consts, prm, carry, xs, b0, b1)
+    _bucket.check_args(layout, consts, prm, carry, xs, b0, b1)
+    return ref.bucket_segment_ref(layout, consts, prm, carry, xs, b0, b1)

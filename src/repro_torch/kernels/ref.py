@@ -347,3 +347,422 @@ def _chains(x, u, theta, valid, span, zeros):
         es = [e] + es[:-1]
         sq = [vq] + sq[:-1]
     return np.stack(acc, axis=-1)
+
+
+# ------------------------------------------------------------ bucket step
+# The plain version of the vector engine's bucket step (``bucket_step``
+# kernel), in place of the JAX program ``_build_step`` of
+# ``repro.sim.vector.engine`` run under ``lax.scan`` and ``jax.vmap``:
+# replicas are the leading dimension R.  Every op is one IEEE float32 op
+# in the order the kernel does it (no fused multiply-add, ``fmod`` for
+# the reference's float ``mod``), and every reduction has a fixed order:
+# a left fold in index order (``_fold``), or, for the ring's pending
+# instances and the per-bucket scale-out/-in totals, a warp's order
+# (``_lane_sum``).  So the kernel and this version agree bit for bit, on
+# the card and on the CPU.
+
+BUCKET_EPS = 1e-9
+DRAIN_RING = 3        # scale-ins serve ~1 bucket before reaping to spot
+
+#: carry keys, in the reference's order (``engine._init_carry``)
+BUCKET_CARRY = ("live", "f_tok", "qp", "qo", "qn", "d_o", "d_n", "ring",
+                "drainq", "spot", "warm", "wloc", "cd", "tgt", "fc", "dep",
+                "down", "dead", "park_p", "park_o", "park_n", "relcum",
+                "omega", "has_om")
+#: per-replica parameters (``engine._prm``); ``mode`` is held as a float
+BUCKET_PRM = ("mode", "lt_i", "lt_ua", "up", "down", "cd_b", "min_inst",
+              "ua_hi", "ua_lo", "ua_win_b", "hour_b", "route_thr",
+              "plan_router", "has_qm", "qm_sig", "qm_one", "qm_two",
+              "qm_age", "chiron_theta", "chiron_mixed", "chiron_prof",
+              "drop_budget_b", "caps")
+#: per-bucket inputs, shared by the replicas; the bucket index is b0 + s
+BUCKET_XS = ("iw_n", "iw_p", "iw_o", "niw_n", "niw_p", "niw_o", "obs",
+             "fcum")
+#: per-bucket outputs
+BUCKET_YS = ("delay", "tbt", "nw", "util", "inst", "waste", "spot", "done",
+             "drop", "so", "si")
+#: per-cell constants of a fleet (``engine._Static``): service rates,
+#: then the acquisition delays in buckets (small integers, exact)
+BUCKET_CONSTS = ("kv", "ptps", "tbt0", "alpha", "mb", "swap_b", "local_b",
+                 "remote_b")
+
+
+class BucketLayout:
+    """Where each array of the bucket step lies in its packed float32 row.
+
+    The carry of a replica is one row of F floats, its parameters one of
+    K, a bucket's inputs one of X and its outputs one of Y; each key's
+    array is a contiguous slice in the order of ``BUCKET_*``.  The
+    kernel reads these offsets (``bucket_step.Layout``).
+    """
+
+    def __init__(self, M: int, P: int, J: int, L: int, dt: float):
+        self.M, self.P, self.J, self.L, self.LD = M, P, J, L, DRAIN_RING
+        self.C = C = M * P
+        self.dt = float(dt)
+        cj = (C, J)
+        self.carry_shapes = {
+            "ring": (L, C, J), "drainq": (self.LD, C, J), "spot": (J,),
+            "warm": (M, J), "wloc": (M, J), "dep": (M, J), "down": (J,),
+            "dead": (C,), "relcum": (C,), "omega": (C, J, J)}
+        self.carry_shapes = {k: self.carry_shapes.get(k, cj)
+                             for k in BUCKET_CARRY}
+        self.prm_shapes = {k: () for k in BUCKET_PRM}
+        self.prm_shapes.update(chiron_prof=(C,), caps=(J,))
+        self.xs_shapes = {k: cj for k in BUCKET_XS}
+        self.xs_shapes["fcum"] = (C,)
+        self.ys_shapes = {k: cj for k in BUCKET_YS}
+        self.ys_shapes.update(nw=(C,), spot=(J,), so=(), si=())
+        self.consts_shapes = {k: (C,) for k in BUCKET_CONSTS}
+        self.carry_off, self.F = self._offsets(self.carry_shapes)
+        self.prm_off, self.K = self._offsets(self.prm_shapes)
+        self.xs_off, self.X = self._offsets(self.xs_shapes)
+        self.ys_off, self.Y = self._offsets(self.ys_shapes)
+        self.consts_off, self.NC = self._offsets(self.consts_shapes)
+        self._index = {}
+
+    @staticmethod
+    def _offsets(shapes):
+        off, at = {}, 0
+        for k, s in shapes.items():
+            off[k] = at
+            at += int(np.prod(s, dtype=np.int64))
+        return off, at
+
+    @staticmethod
+    def unpack(flat, shapes, offsets):
+        """Views of each key's array in ``flat`` (..., n): numpy or torch;
+        writing a view writes ``flat``."""
+        lead = tuple(flat.shape[:-1])
+        out = {}
+        for k, s in shapes.items():
+            n = int(np.prod(s, dtype=np.int64))
+            part = flat[..., offsets[k]:offsets[k] + n]
+            out[k] = part.reshape(lead + tuple(s))
+        return out
+
+    @staticmethod
+    def pack_into(flat, tree, shapes, offsets):
+        """Write each key of ``tree`` into its slice of ``flat``."""
+        lead = tuple(flat.shape[:-1])
+        for k, s in shapes.items():
+            n = int(np.prod(s, dtype=np.int64))
+            flat[..., offsets[k]:offsets[k] + n] = tree[k].reshape(lead + (n,))
+        return flat
+
+    def carry(self, flat):
+        return self.unpack(flat, self.carry_shapes, self.carry_off)
+
+    def prm(self, flat):
+        return self.unpack(flat, self.prm_shapes, self.prm_off)
+
+    def xs(self, flat):
+        return self.unpack(flat, self.xs_shapes, self.xs_off)
+
+    def ys(self, flat):
+        return self.unpack(flat, self.ys_shapes, self.ys_off)
+
+    def consts(self, flat):
+        return self.unpack(flat, self.consts_shapes, self.consts_off)
+
+    def index(self, device):
+        """Tensors of the step on ``device``, made once: each home's
+        priority order (home, then the other regions ascending), the
+        regions, the cells, and J as a float32 tensor (CUDA divides by a
+        host scalar as a product with its reciprocal, which rounds
+        apart from a division)."""
+        got = self._index.get(str(device))
+        if got is None:
+            J = self.J
+            pri = [[h] + [k for k in range(J) if k != h] for h in range(J)]
+            got = (torch.tensor(pri, device=device),
+                   torch.arange(J, device=device),
+                   torch.arange(self.C, device=device),
+                   torch.tensor(float(J), device=device))
+            self._index[str(device)] = got
+        return got
+
+
+def _fold(x, dim: int):
+    """Sum over ``dim`` as a left fold in index order: x0 + x1 + ..."""
+    s = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        s = s + x.select(dim, i)
+    return s
+
+
+def _lane_sum(x, dim: int):
+    """Sum over ``dim`` in a warp's order: lane l folds elements l, l + 32,
+    l + 64, ... (zeros past the end) in index order, then the 32 lanes
+    halve as ``__shfl_down_sync`` by 16, 8, 4, 2, 1."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    k = max(1, -(-n // _WARP))
+    if k * _WARP != n:
+        x = torch.nn.functional.pad(x, (0, k * _WARP - n))
+    x = x.reshape(x.shape[:-1] + (k, _WARP))
+    s = _fold(x, x.dim() - 2)
+    h = _WARP // 2
+    while h:
+        s = s[..., :h] + s[..., h:2 * h]
+        h //= 2
+    return s[..., 0]
+
+
+def _pool_sum(x, M: int, P: int):
+    """(R, C, J) cells -> (R, M, J): each model's pools, folded."""
+    return _fold(x.reshape(x.shape[0], M, P, x.shape[-1]), 2)
+
+
+def _cells(x, P: int):
+    """(R, M, ...) per model -> (R, C, ...): each cell takes its model's."""
+    return x.repeat_interleave(P, dim=1)
+
+
+def _route(a, rm):
+    """out[c, k] = fold over j of a[c, j] * rm[c, j, k]."""
+    return _fold(a[..., None] * rm, 2)
+
+
+def bucket_step_ref(lay: BucketLayout, consts, prm, carry, x, b: int):
+    """One bucket for R replicas, step by step as ``engine.py``'s
+    ``step`` (its numbered sections).  ``consts``: per-cell arrays (C,);
+    ``prm``: (R, ...); ``carry``: (R, ...); ``x``: one bucket's inputs
+    (C, J) or (C,), shared.  Returns (carry, ys), new tensors."""
+    C, J, M, P, L, LD, dt = (lay.C, lay.J, lay.M, lay.P, lay.L, lay.LD,
+                             lay.dt)
+    eps = BUCKET_EPS
+    R = carry["live"].shape[0]
+    where, mn_, mx_ = torch.where, torch.minimum, torch.maximum
+    lo = torch.clamp_min
+    one = lambda v: v.reshape(R, 1, 1)          # per replica, vs (R, C, J)
+    KV, PTPS, TBT0, ALPHA, MB = (consts[k].reshape(1, C, 1) for k in
+                                 ("kv", "ptps", "tbt0", "alpha", "mb"))
+    delays = [consts[k].long() for k in ("swap_b", "local_b", "remote_b")]
+    dev = carry["live"].device
+    pri, regions, ci, j_f = lay.index(dev)
+
+    # -- 1. activate pending instances / reap drained ones
+    idx = b % L
+    ring = carry["ring"].clone()
+    live = carry["live"] + ring[:, idx]
+    ring[:, idx] = 0.0
+    idx_d = b % LD
+    drainq = carry["drainq"].clone()
+    reap = drainq[:, idx_d].clone()
+    drainq[:, idx_d] = 0.0
+    spot = carry["spot"] + _fold(reap, 1)
+    warm = carry["warm"] + _pool_sum(reap, M, P)
+    draining = _fold(drainq, 1)
+    pend = _lane_sum(ring, 1)
+    dep_c = _cells(carry["dep"], P)
+    down = carry["down"]
+
+    # -- 2. utilization
+    outst = carry["qp"] + carry["qo"] + carry["f_tok"]
+    alive = live > 0.5
+    u = where(alive, torch.clamp(outst / lo(KV * live, 1.0), 0.0, 1.0),
+              1.0)
+    total = live + pend
+
+    # -- 3. routing matrix Rm[c, home, dest]
+    ok_region = (dep_c > 0.5) & (down[:, None, :] < 0.5)
+    score = where(alive, u, where(ok_region, 1.5, 2.0))
+    below = score < one(prm["route_thr"])
+    fallback = torch.argmin(score, dim=2)
+    bp = below[:, :, pri]                        # (R, C, home, priority)
+    first = pri[regions[None, None, :],
+                torch.argmax(bp.to(torch.uint8), dim=3)]
+    dest = where(bp.any(dim=3), first, fallback[:, :, None])
+    thr_mat = torch.nn.functional.one_hot(dest, J).to(torch.float32)
+    om = carry["omega"] * alive[:, :, None, :].to(torch.float32)
+    rs = _fold(om, 3)[..., None]
+    om = where(rs > eps, om / lo(rs, eps), thr_mat)
+    use_om = (one(prm["plan_router"]) > 0.5) & (carry["has_om"] > 0.5)
+    rm = where(use_om[..., None], om, thr_mat)
+
+    # -- 4. route this bucket's arrivals (NIW parks under a QM)
+    hq = one(prm["has_qm"])
+    nq = 1.0 - hq
+    r_n = _route(x["iw_n"] + nq * x["niw_n"], rm)
+    r_p = _route(x["iw_p"] + nq * x["niw_p"], rm)
+    r_o = _route(x["iw_o"] + nq * x["niw_o"], rm)
+
+    # -- 5. scaling policy
+    cd_now = lo(carry["cd"] - 1.0, 0.0)
+    obs = x["obs"]
+    mn = one(prm["min_inst"])
+    up, dn = one(prm["up"]), one(prm["down"])
+    d_re = where(u > up, 1.0,
+                 where((u < dn) & (total > mn + 0.5), -1.0, 0.0))
+    d_re = where((r_n > eps) & alive, d_re, 0.0)
+    tgtv = carry["tgt"]
+    has_t = tgtv > -0.5
+    target = mx_(tgtv, mn)
+    jump = where(has_t & ((target - total).abs() > 0.49), target - total,
+                 0.0)
+    fcv = lo(carry["fc"], 1e-9)
+    hour_b = one(prm["hour_b"])
+    pos = torch.fmod(torch.full((R, 1, 1), float(b), device=dev), hour_b)
+    in_win = (one(prm["lt_ua"]) > 0.5) & (pos >= hour_b
+                                          - one(prm["ua_win_b"]))
+    up_a = (u > up) & (total < target - 0.5)
+    dn_a = (u < dn) & (total > mx_(target, mn) + 0.5)
+    ua_up = in_win & (total > target - 0.5) & \
+        (obs >= one(prm["ua_hi"]) * fcv) & (u > up)
+    ua_dn = in_win & (total < target + 0.5) & (total > mn + 0.5) & \
+        (obs <= one(prm["ua_lo"]) * fcv)
+    d_ltu = where(up_a, 1.0, where(dn_a, -1.0, where(
+        ua_up, 1.0, where(ua_dn, -1.0, 0.0))))
+    d_ltu = where(has_t, d_ltu, 0.0)
+    lt_i = one(prm["lt_i"]) > 0.5
+    d_lt = where(lt_i, jump, d_ltu)
+    park_v = carry["park_p"] + carry["park_o"] + hq * (x["niw_p"]
+                                                       + x["niw_o"])
+    park_tok = _fold(_pool_sum(park_v, M, P), 2)            # (R, M)
+    bk_c = _cells(park_tok, P) / j_f                         # (R, C)
+    prof = prm["chiron_prof"][:, :, None]
+    req_i = torch.ceil(obs / lo(one(prm["chiron_theta"]) * prof, 1e-9))
+    req_b = torch.ceil(bk_c[:, :, None] / lo(prof * 3600.0, 1e-9))
+    tgt_ch = mx_(req_i + req_b + one(prm["chiron_mixed"]), mn)
+    d_ch = where((tgt_ch - total).abs() > 0.49, tgt_ch - total, 0.0)
+    mode = one(prm["mode"])
+    delta = where(mode == 0.0, d_re, where(mode == 1.0, d_lt, d_ch))
+    act = ((cd_now < 0.5) | lt_i) & (delta.abs() > 0.49)
+    delta = where(act, delta, 0.0)
+    cd = where(act & ~lt_i, one(prm["cd_b"]), cd_now)
+
+    # -- 6. actuate: spot acquisition (warm-first) and drains
+    want_up = where(ok_region, lo(delta, 0.0), 0.0)
+    req_j = _fold(want_up, 1)
+    inst = live + pend + draining
+    used_j = _fold(inst, 1)
+    avail_j = lo(mn_(spot, lo(prm["caps"] - used_j, 0.0)), 0.0)
+    fac = where(req_j > eps, torch.clamp_max(avail_j / lo(req_j, eps), 1.0),
+                0.0)
+    grant = want_up * fac[:, None, :]
+    g_m = _pool_sum(grant, M, P)
+    ratio = grant / lo(_cells(g_m, P), eps)
+    warm_take = mn_(grant, _cells(warm, P) * ratio)
+    cold = grant - warm_take
+    warm = lo(warm - _pool_sum(warm_take, M, P), 0.0)
+    spot = spot - _fold(grant, 1)
+    cold_loc = cold * where(_cells(carry["wloc"], P) > 0.5, 1.0, 0.0)
+    cold_rem = cold - cold_loc
+    for val, delay in zip((warm_take, cold_loc, cold_rem), delays):
+        rows = (b + delay) % L
+        ring[:, rows, ci] = ring[:, rows, ci] + val
+    wloc = mx_(carry["wloc"], where(_pool_sum(cold, M, P) > eps, 1.0, 0.0))
+    want_dn = mn_(lo(-delta, 0.0), live)
+    live_after = live - want_dn
+    row_d = (b + LD - 1) % LD
+    drainq[:, row_d] = drainq[:, row_d] + want_dn
+
+    # -- 7. queue manager: park NIW, forced + capacity releases
+    park_p = carry["park_p"] + hq * x["niw_p"]
+    park_o = carry["park_o"] + hq * x["niw_o"]
+    park_n = carry["park_n"] + hq * x["niw_n"]
+    pk_tot = _fold(park_n, 2)
+    need = mn_(lo(x["fcum"] - carry["relcum"], 0.0), pk_tot)
+    fr = (need / lo(pk_tot, eps))[:, :, None]
+    rel_n, rel_p, rel_o = park_n * fr, park_p * fr, park_o * fr
+    park_n, park_p, park_o = park_n - rel_n, park_p - rel_p, park_o - rel_o
+    q_add_n, q_add_p, q_add_o = (_route(rel_n, rm), _route(rel_p, rm),
+                                 _route(rel_o, rm))
+    relcum = carry["relcum"] + need
+    per_inst = where(u < one(prm["qm_two"]), 2.0,
+                     where(u < one(prm["qm_one"]), 1.0, 0.0))
+    cap_dest = hq * where((u < one(prm["qm_sig"])) & (live_after > 0.5),
+                          per_inst * live_after, 0.0)
+    cap_tot = _fold(cap_dest, 2)
+    pk_tot2 = _fold(park_n, 2)
+    take = mn_(cap_tot, pk_tot2)
+    sf = (take / lo(pk_tot2, eps))[:, :, None]
+    rel2_p, rel2_o = park_p * sf, park_o * sf
+    park_n, park_p, park_o = (park_n - park_n * sf, park_p - rel2_p,
+                              park_o - rel2_o)
+    df = cap_dest / lo(cap_tot[:, :, None], eps)
+    q_add_n = q_add_n + take[:, :, None] * df
+    q_add_p = q_add_p + _fold(rel2_p, 2)[:, :, None] * df
+    q_add_o = q_add_o + _fold(rel2_o, 2)[:, :, None] * df
+    relcum = relcum + take
+
+    # -- 8/9. enqueue, admit to service, decode
+    qn = carry["qn"] + r_n + q_add_n
+    qp = carry["qp"] + r_p + q_add_p
+    qo = carry["qo"] + r_o + q_add_o
+    svc = live + draining
+    pre_cap = PTPS * svc * dt
+    slots = lo(MB * svc - carry["d_n"], 0.0)
+    frac = torch.clamp(mn_(pre_cap / lo(qp, eps), slots / lo(qn, eps)),
+                       0.0, 1.0)
+    adm_n, adm_p, adm_o = qn * frac, qp * frac, qo * frac
+    qn, qp, qo = qn - adm_n, qp - adm_p, qo - adm_o
+    f_tok = carry["f_tok"] + adm_p + adm_o
+    d_n = carry["d_n"] + adm_n
+    d_o = carry["d_o"] + adm_o
+    occ = torch.clamp(d_n / lo(MB * svc, eps), 0.0, 1.0)
+    tbt = TBT0 * (1.0 + ALPHA * occ)
+    srv_o = mn_(d_o, where(svc > eps, (d_n / tbt) * dt, 0.0))
+    done_n = where(d_o > eps, d_n * srv_o / lo(d_o, eps), 0.0)
+    rel_tok = where(d_n > eps, f_tok * done_n / lo(d_n, eps), f_tok)
+    d_o, d_n, f_tok = d_o - srv_o, d_n - done_n, f_tok - rel_tok
+    tiny = d_n < 1e-6
+    d_o = where(tiny, 0.0, d_o)
+    f_tok = where(tiny, 0.0, f_tok)
+    d_n = where(tiny, 0.0, d_n)
+
+    # -- 10. dead cells: drop queues past the retry budget
+    dead = where(_fold(live_after, 2) < 0.5, carry["dead"] + 1.0, 0.0)
+    flush = (dead > prm["drop_budget_b"][:, None])[:, :, None]
+    drop = where(flush, qn, 0.0)
+    qn = where(flush, 0.0, qn)
+    qp = where(flush, 0.0, qp)
+    qo = where(flush, 0.0, qo)
+
+    # -- 11. emissions for per-request reconstruction
+    delay_dest = where(qn >= 1.0, torch.clamp(
+        qp * dt / lo(adm_p + 0.5 * rel_tok, eps), 0.0, 1e6), 0.0)
+    delay_h = _fold(rm * delay_dest[:, :, None, :], 3)
+    tbt_h = _fold(rm * tbt[:, :, None, :], 3)
+    pk_fin = _fold(park_n, 2)
+    nw = where(prm["has_qm"][:, None] > 0.5, mn_(lo(
+        0.5 * dt + pk_fin * dt / lo(take + need, eps), 0.5 * dt),
+        prm["qm_age"][:, None]), 0.0)
+    out = {"live": live_after, "f_tok": f_tok, "qp": qp, "qo": qo,
+           "qn": qn, "d_o": d_o, "d_n": d_n, "ring": ring,
+           "drainq": drainq, "spot": spot, "warm": warm, "wloc": wloc,
+           "cd": cd, "tgt": carry["tgt"], "fc": carry["fc"],
+           "dep": carry["dep"], "down": down, "dead": dead,
+           "park_p": park_p, "park_o": park_o, "park_n": park_n,
+           "relcum": relcum, "omega": carry["omega"],
+           "has_om": carry["has_om"]}
+    ys = {"delay": delay_h, "tbt": tbt_h, "nw": nw, "util": u,
+          "inst": inst, "waste": pend, "spot": spot, "done": done_n,
+          "drop": drop, "so": _lane_sum(grant.reshape(R, C * J), 1),
+          "si": _lane_sum(want_dn.reshape(R, C * J), 1)}
+    return out, ys
+
+
+def bucket_segment_ref(lay: BucketLayout, consts, prm, carry, xs,
+                       b0: int, b1: int):
+    """Buckets b0..b1-1 for R replicas on packed tensors, the plain
+    version of the ``bucket_step`` kernel.  consts: (NC,); prm: (R, K);
+    carry: (R, F); xs: (b1 - b0, X), row s the inputs of bucket b0 + s.
+    Returns (carry (R, F), ys (R, b1 - b0, Y)), new tensors."""
+    cs, pm = lay.consts(consts), lay.prm(prm)
+    tree = lay.carry(carry)
+    x_all = lay.xs(xs)
+    steps = []
+    for s in range(b1 - b0):
+        tree, y = bucket_step_ref(lay, cs, pm, tree,
+                                  {k: v[s] for k, v in x_all.items()},
+                                  b0 + s)
+        steps.append(y)
+    ys = torch.empty((carry.shape[0], b1 - b0, lay.Y), dtype=torch.float32,
+                     device=carry.device)
+    lay.pack_into(ys, {k: torch.stack([y[k] for y in steps], dim=1)
+                       for k in BUCKET_YS}, lay.ys_shapes, lay.ys_off)
+    out = torch.empty_like(carry)
+    lay.pack_into(out, tree, lay.carry_shapes, lay.carry_off)
+    return out, ys

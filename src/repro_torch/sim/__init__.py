@@ -1,4 +1,1 @@
-"""Event-loop simulator (verbatim port of the ``repro.sim`` modules).
-
-The vector engine (``repro.sim.vector``) is not ported yet.
-"""
+"""Event-loop simulator and vector engine (ports of the ``repro.sim`` modules)."""

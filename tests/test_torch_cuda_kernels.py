@@ -12,7 +12,9 @@ accumulating in fp32); the SSD state scan (K3) atol 1e-6, the reference
 sweep's, though kernel and plain version round the same two ops and
 agree bit for bit; the ARMA fit 0: kernel and plain version round every
 op alike, and near an optimum Adam amplifies any rounding difference
-into a different trajectory, so only bit equality is a meaningful bound.
+into a different trajectory, so only bit equality is a meaningful bound;
+the vector engine's bucket step 0, for the same reason: kernel and plain
+version do the same float32 ops in the same order.
 """
 import dataclasses
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.configs import get_arch, reduce_for_smoke
 from repro_torch.kernels import arma_fit as tarma
+from repro_torch.kernels import bucket_step as tbs
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
@@ -390,3 +393,74 @@ def test_arma_fit_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="row length"):
         tarma.arma_fit(torch.zeros((2, tarma.MAX_LEN + 1), device=dev),
                        torch.zeros((2, 4), device=dev), 2, 1, 10, 0.05)
+
+
+#: the edge cases of chip_smoke.py's phase 3 (``bucket_step.synthetic_case``
+#: arguments; b0 where the segment starts)
+BUCKET_CASES = {
+    "R=1, one bucket": dict(seed=1, modes=("lt-ua",), buckets=1),
+    "R=1, reactive": dict(seed=2, modes=("reactive",)),
+    "R=5, every mode, unified": dict(seed=3, modes=tuple(tbs.MODES)),
+    "R=5, siloed": dict(seed=4, modes=tuple(tbs.MODES), P=2),
+    "R=8, 8 models x 2 pools (C*J = 48)": dict(
+        seed=5, modes=tuple(tbs.MODES) + ("reactive", "lt-ua", "chiron"),
+        M=8, P=2),
+    "ring collision": dict(seed=6, modes=tuple(tbs.MODES), collide=True),
+    "region down": dict(seed=7, modes=tuple(tbs.MODES), down=True),
+    "dead model past its budget": dict(seed=8, modes=tuple(tbs.MODES),
+                                       dead=True),
+    "no plan rows": dict(seed=9, modes=tuple(tbs.MODES), plan=False),
+    "wraps the ring": dict(seed=10, modes=tuple(tbs.MODES), b0=3 * 481 - 100),
+}
+
+
+def bucket_inputs(dev, case):
+    kw = dict(BUCKET_CASES[case])
+    b0 = kw.pop("b0", 0)
+    lay, *arrays = tbs.synthetic_case(**kw)
+    consts, prm, carry, xs = (torch.from_numpy(a).to(dev) for a in arrays)
+    return lay, consts, prm, carry, xs, b0, b0 + xs.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BUCKET_CASES))
+def test_bucket_step_kernel_matches_plain_bit_for_bit(dev, case):
+    args = bucket_inputs(dev, case)
+    got_c, got_y = tbs.bucket_segment(*args)
+    want_c, want_y = tref.bucket_segment_ref(*args)
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got_y, want_y)
+    assert torch.isfinite(got_y).all()
+
+
+@pytest.mark.cuda
+def test_bucket_step_kernel_replicas_are_pure(dev):
+    """A replica alone, in a batch and in a permuted batch: the same bits;
+    repeats too."""
+    lay, consts, prm, carry, xs, b0, b1 = bucket_inputs(
+        dev, "R=5, every mode, unified")
+    c, y = tbs.bucket_segment(lay, consts, prm, carry, xs, b0, b1)
+    again = tbs.bucket_segment(lay, consts, prm, carry, xs, b0, b1)
+    assert torch.equal(again[0], c) and torch.equal(again[1], y)
+    perm = torch.tensor([3, 0, 4, 1, 2], device=dev)
+    pc, py = tbs.bucket_segment(lay, consts, prm[perm], carry[perm], xs, b0,
+                                b1)
+    assert torch.equal(pc, c[perm]) and torch.equal(py, y[perm])
+    ac, ay = tbs.bucket_segment(lay, consts, prm[2:3], carry[2:3], xs, b0,
+                                b1)
+    assert torch.equal(ac[0], c[2]) and torch.equal(ay[0], y[2])
+
+
+@pytest.mark.cuda
+def test_bucket_step_kernel_rejects_what_it_does_not_take(dev):
+    lay, consts, prm, carry, xs, b0, b1 = bucket_inputs(dev,
+                                                        "R=1, reactive")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbs.bucket_segment(lay, consts, prm, carry.cpu(), xs, b0, b1)
+    with pytest.raises(ValueError, match="float32"):
+        tbs.bucket_segment(lay, consts, prm, carry.double(), xs, b0, b1)
+    big = tref.BucketLayout(16, 2, 8, 481, 15.0)
+    z = lambda *s: torch.zeros(s, device=dev)
+    with pytest.raises(ValueError, match="227 KB"):
+        tbs.bucket_segment(big, z(big.NC), z(1, big.K), z(1, big.F),
+                           z(1, big.X), 0, 1)

@@ -79,3 +79,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         ServingEngine(cfg, lm, max_batch=1, max_seq=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
+
+
+def test_vector_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.api import (ExperimentSpec, StackSpec, build_stack,
+                                 run_experiment)
+    from repro_torch.core.scaling import make_policy
+    from repro_torch.sim.simulator import SimConfig
+    from repro_torch.sim.vector import VectorBatch, VectorSimulation
+    from repro_torch.sim.workload import (PAPER_MODELS, REGIONS,
+                                          WorkloadSpec, generate_trace)
+
+    trace = generate_trace(WorkloadSpec(days=0.01, scale=0.01))
+    cfg = SimConfig(policy=make_policy("reactive"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VectorBatch(trace, [cfg])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VectorSimulation(trace, cfg)
+    spec = StackSpec(models=PAPER_MODELS, regions=REGIONS,
+                     scaler="reactive", drain_grace=900.0)
+    stack = build_stack(spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        stack.simulate_vector(trace)
+    exp = ExperimentSpec(name="x", strategies={"r": spec},
+                         workloads={"w": WorkloadSpec(days=0.01,
+                                                      scale=0.01)},
+                         engine="vector")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_experiment(exp, jobs=1)
+    assert run_experiment(exp, jobs=1, device="cpu").results[0].engine \
+        == "vector"

@@ -143,7 +143,10 @@ def test_stack_report_equals_reference(strategy):
 
 
 def test_simulate_vector_names_the_roadmap_item():
-    stack = build_stack(StackSpec.from_dict(_stack_dict("reactive")))
-    with pytest.raises(NotImplementedError, match="vector engine"):
-        stack.simulate_vector(workload.generate_trace(
-            workload.WorkloadSpec(days=0.01, scale=0.01)))
+    """The vector engine (ROADMAP.md, Queue 1, item 3) is ported:
+    ``simulate_vector`` runs on the stack's device."""
+    stack = build_stack(StackSpec.from_dict(dict(
+        _stack_dict("reactive"), drain_grace=900.0)), device="cpu")
+    rep = stack.simulate_vector(workload.generate_trace(
+        workload.WorkloadSpec(days=0.01, scale=0.01)))
+    assert sum(rep.completed.values()) > 0
