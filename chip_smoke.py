@@ -60,13 +60,19 @@ which must pass for the run to exit 0:
    boundary's forecast fits one ``arma_fit`` batch across the fleet.
    Each Report is printed; the vector ``lt-ua+plan`` Report must lie
    within the reference's vector-vs-event tolerance of phase 5's (0.02
-   completion, 10% GPU-hours and dollars); the segments of the first
-   simulated day are replayed through the plain step on the card and
-   must equal the kernel's bit for bit.  Then ``bucket_step`` is timed
-   at a 240-bucket segment (an hour between two boundaries) for one
-   replica and for 8, beside its byte bound, the chain floor of its
-   barrier phases, the eager plain step and the plain step captured in
-   a CUDA graph (a measurement only).
+   completion, 10% GPU-hours and dollars).  The run is made once more
+   under torch.profiler for the kernels' own device time and the run's
+   device-busy share (the CUDA events around each launch also hold the
+   host's enqueue gaps).  Every segment of both batches (78 hourly
+   segments of 6 replicas, the siloed run's one segment of 18,721
+   buckets) is replayed bucket by bucket through the plain step on the
+   card, one bucket's plain step captured in a CUDA graph, and must
+   equal the kernel's bit for bit.  Then
+   ``bucket_step`` is timed at a 240-bucket segment (an hour between two
+   boundaries) for one replica and for 8, beside its byte bound, the
+   chain floor of one bucket's dependent ops (``BUCKET_CHAIN``), the
+   eager plain step and the plain step captured in a CUDA graph (a
+   measurement only).
 
 The bucket step is also checked in phase 3 against its plain version bit
 for bit on seeded segments (``bucket_step.synthetic_case``): one replica
@@ -74,7 +80,11 @@ and one bucket, every mode in one batch, unified and siloed pools, 8
 models x 2 pools (48 cells, more than a warp), 8 replicas, a ring
 collision (a cell's swap, local and remote delays equal), a region down,
 a dead model past its drop budget, no plan rows, a segment that wraps
-the ring; then a replica alone, in a permuted batch, and a repeat.
+the ring, J = 1, 2, 4, 5, 8 and 6 (each region count the kernel
+specialises, and one it takes at run time), a ring of 96 rows (whole
+chunks of 32), 72 cells (4 a lane), 144 (the kernel for more than 128
+cells) and 330 (too many to stage the outputs in shared memory); then a
+replica alone, in a permuted batch, and a repeat.
 
 The ARMA fit kernel (``arma_fit``) is also checked in phase 3 against
 its plain version bit for bit: orders (1,1), (2,1), (2,2), (3,1), (2,0),
@@ -125,9 +135,13 @@ SCAN_ATOL = 1e-6         # K3 (fp32), the reference sweep's tolerance
 # kernels at M = 4 than at M = 1862, compounded by the SSM recurrence
 # over 95 blocks.  The decode conv now runs in fp32, as the reference's
 # does, which rounds it apart from the prefill's bf16 conv: the gap goes
-# back toward the 8.3e-2 of the first such run.  fp32, every model: the
-# same path agrees to 2.0e-5, and is held to 1e-3, the reference's own
-# bound for a decode step against the full forward in fp32.
+# back toward the 8.3e-2 of the first such run.  The JAX package drifts
+# the same way: on the CPU the port's bf16 gap stays within 2x of the
+# reference's on the same weights (tests/test_torch_ssm_bf16.py).  So the
+# gap is printed beside a yardstick, the bf16 full forward's own error
+# against the fp32 full forward of the same weights.  fp32, every model:
+# the same path agrees to 2.0e-5, and is held to 1e-3, the reference's
+# own bound for a decode step against the full forward in fp32.
 SERVE_LOGIT_TOL = 3e-2
 FP32_LOGIT_TOL = 1e-3
 PROFILED_CALL = 2        # which prefill and which decode call to profile
@@ -171,11 +185,39 @@ BUCKET_CASES = (
     ("dead model past its budget", dict(seed=8, modes="all", dead=True)),
     ("no plan rows", dict(seed=9, modes="all", plan=False)),
     ("wraps the ring", dict(seed=10, modes="all", b0=3 * 481 - 100)),
+    # one case per instantiation of the kernel's template: J = 1, 2, 4, 5
+    # and 8 (3 above), J at run time (6), 2 and 4 cells a lane (C*J = 48
+    # above, 72 here) and the 32 cells a lane of C*J > 128
+    ("J=1", dict(seed=11, modes="all", J=1)),
+    ("J=2", dict(seed=16, modes="all", J=2)),
+    ("J=4", dict(seed=17, modes="all", J=4)),
+    ("J=5", dict(seed=12, modes="all", J=5)),
+    ("J=8", dict(seed=18, modes="all", M=3, J=8)),
+    ("J=6 (J at run time)", dict(seed=13, modes="all", M=2, J=6)),
+    ("L=96 (whole chunks of 32 rows)", dict(seed=19, modes="all", L=96)),
+    ("C*J=72 (8 models x 3 pools x 3 regions)", dict(seed=14, modes="all",
+                                                     M=8, P=3)),
+    ("C*J=144 (32 cells a lane), L=121",
+     dict(seed=15, modes=("lt-ua", "chiron"), M=16, P=3, L=121,
+          buckets=24)),
+    ("C*J=330, outputs not staged in shared memory, L=121",
+     dict(seed=20, modes=("lt-ua",), M=110, L=121, buckets=24)),
 )
 COMPLETION_ABS_TOL = 0.02   # vector vs event loop: tests/test_vector_sim.py
 HOURS_REL_TOL = 0.10
-BARRIER_CYCLES = 20      # one __syncthreads of 256 threads (assumed)
-BUCKET_BARRIERS = 12     # barrier phases of one bucket in bucket_step.cu
+# The bucket step's chain floor: the longest dependent chain of one
+# bucket, counted from csrc/bucket_step.cu at the run's unified layout (J =
+# 3, P = 1, C = 4), each op at an assumed Hopper latency in cycles.  The
+# ring's sum runs on other warps, off the chain.  The chain: u (a
+# division) -> published -> Rm (a division) -> published -> the scaling
+# decision -> published -> the row's queue-manager release (fr, sf) ->
+# admission (frac), occupancy, TBT, decode (dnv / tbt, done, rel_tok) ->
+# the delay (dd) -> published -> the delay seen from the home.
+BUCKET_CHAIN = {          # kind: (ops on the chain, cycles each)
+    "fp32 add/mul/min/max/select": (75, FMA_LATENCY_CYCLES),
+    "fp32 division (MUFU.RCP, 4 dependent FFMAs, a warp vote)": (10, 40),
+    "shared-memory round trip (store, barrier, load)": (4, 60),
+}
 BUCKET_OPS_PER_CELL = 250   # float ops of one cell and bucket (counted)
 
 
@@ -638,8 +680,10 @@ def expected_launches(cfg, prefill_calls: int, decode_calls: int):
 
 
 def serve(dev, arch: str, n_requests: int, max_new: int):
-    """Serve ``arch`` at full size.  Returns its kernel launch counts and
-    the longest request's prompt and generated tokens but the last."""
+    """Serve ``arch`` at full size.  Returns its kernel launch counts, the
+    longest request's prompt and generated tokens but the last, and its
+    bf16 decode gap: the relative L2 error of its last decode logits and
+    the bf16 full forward's logits they are held to."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
@@ -765,14 +809,17 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
             and (rel <= SERVE_LOGIT_TOL or not bounded)):
         raise SystemExit(f"serve {arch}: decode logits disagree with the "
                          f"full forward")
-    return launches, seq
+    return launches, seq, (rel, ref_logits)
 
 
-def check_fp32_decode(dev, arch: str, seq, steps: int) -> float:
+def check_fp32_decode(dev, arch: str, seq, steps: int, bf16_gap) -> float:
     """``seq`` through ``arch`` in fp32 (the same seeded draws as the
     served bf16 weights, before rounding): a prefill of all but the last
     ``steps`` tokens, ``steps`` decode steps over those, and the last
-    logits against a full forward over ``seq``."""
+    logits against a full forward over ``seq``.  ``bf16_gap`` (the
+    served bf16 decode's gap and the bf16 full forward's logits) is
+    printed beside the yardstick of the bf16 full forward's error against
+    this fp32 full forward."""
     from repro_torch.configs import get_arch
     from repro_torch.models import model
     from repro_torch.serving.engine import _write_slot
@@ -800,6 +847,11 @@ def check_fp32_decode(dev, arch: str, seq, steps: int) -> float:
     if not (rel <= FP32_LOGIT_TOL and torch.isfinite(got).all()):
         raise SystemExit(f"{arch}: fp32 decode logits disagree with the "
                          f"full forward")
+    gap, bf16_full = bf16_gap
+    yard = float((bf16_full - want).norm() / want.norm())
+    log(f"  bf16: decode vs full forward rel L2 {gap:.3e}; yardstick, the "
+        f"bf16 full forward vs the fp32 full forward {yard:.3e} (gap / "
+        f"yardstick {gap / yard:.2f})")
     return rel
 
 
@@ -1114,6 +1166,22 @@ def vector_specs():
     return {s: out[s] for s in VECTOR_STRATEGIES}
 
 
+def vector_experiment():
+    """The seven strategies over phase 5's 3-day trace on the vector
+    engine, with the fit and ILP caches emptied (phase 5 and its replay
+    filled them with this trace's fits and plans), so a run fits and
+    solves its own."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.control import amortize, forecast
+    from repro_torch.sim.workload import WorkloadSpec
+
+    forecast.clear_fit_cache()
+    amortize.clear_solve_cache()
+    return ExperimentSpec(name="vector", strategies=vector_specs(),
+                          workloads={"3d": WorkloadSpec(**SIM_WORKLOAD)},
+                          engine="vector")
+
+
 def vector(dev):
     """``run_experiment(engine="vector")`` over the 3-day trace of phase
     5 with the seven strategies, on ``dev``: the unified stacks step as
@@ -1121,17 +1189,12 @@ def vector(dev):
     (its input carry, the kernel's outputs and CUDA events around the
     launch).  Returns the results, the records and the kernel launch
     counts, set to 0 just before the run and read just after."""
-    from repro_torch.api import ExperimentSpec, run_experiment
-    from repro_torch.control import amortize, forecast
+    from repro_torch.api import run_experiment
     from repro_torch.kernels import arma_fit, bucket_step, ops
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.sim.workload import WorkloadSpec
 
-    exp = ExperimentSpec(name="vector", strategies=vector_specs(),
-                         workloads={"3d": WorkloadSpec(**SIM_WORKLOAD)},
-                         engine="vector")
     segs, segment = [], ops.bucket_segment
 
     def recorded(lay, consts, prm, carry, xs, b0, b1):
@@ -1147,11 +1210,7 @@ def vector(dev):
                          kernel=bucket_step.LAUNCHES - before))
         return out, ys
 
-    # phase 5 and its replay filled the process-wide fit and ILP caches
-    # with this trace's fits and plans: empty them, so this run fits and
-    # solves its own
-    forecast.clear_fit_cache()
-    amortize.clear_solve_cache()
+    exp = vector_experiment()
     fa.LAUNCHES = dec.LAUNCHES = ssd.LAUNCHES = arma_fit.LAUNCHES = 0
     bucket_step.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1228,38 +1287,126 @@ def report_vector(vrun, launches, event_run) -> None:
         raise SystemExit("vector: lt-ua+plan disagrees with the event loop")
 
 
-def replay_vector(vrun, until_b: int, errs) -> int:
-    """Every recorded segment that starts before bucket ``until_b`` again
-    through the plain step on the card, from its recorded input carry:
-    its outputs must equal the kernel's bit for bit.  A segment that runs
-    past ``until_b`` is cut there (the kernel runs the cut segment again,
-    for its carry).  Returns the buckets replayed."""
-    from repro_torch.kernels import bucket_step, ref
+class PlainStepGraph:
+    """The plain step of one bucket (``ref.bucket_step_ref``) for R
+    replicas of one layout, captured once in a CUDA graph: its carry,
+    parameters, inputs and bucket index are static device tensors, so a
+    replay steps any bucket of any segment of that layout.  The graph
+    writes the new carry to its own output, copied back to the input
+    after each replay (a graph that also wrote its input carry in place
+    replayed wrong on the card).  A measurement and check only, never the
+    path."""
 
-    n, t0, worst = 0, time.perf_counter(), 0.0
+    def __init__(self, lay, consts, prm, carry, x):
+        from repro_torch.kernels import ref
+
+        dev = carry.device
+        self.lay = lay
+        self.prm, self.carry, self.x = prm.clone(), carry.clone(), x.clone()
+        self.b = torch.zeros((), dtype=torch.int64, device=dev)
+        self.consts = lay.consts(consts.clone())
+
+        def step():
+            tree, y = ref.bucket_step_ref(lay, self.consts, lay.prm(self.prm),
+                                          lay.carry(self.carry),
+                                          lay.xs(self.x), self.b)
+            out = torch.empty_like(self.carry)
+            lay.pack_into(out, tree, lay.carry_shapes, lay.carry_off)
+            ys = torch.empty((self.carry.shape[0], lay.Y), device=dev)
+            lay.pack_into(ys, y, lay.ys_shapes, lay.ys_off)
+            return out, ys
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()                       # builds the layout's index tensors
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out, self.ys = step()
+
+    def segment(self, prm, carry, xs, b0):
+        """Buckets b0 .. b0 + len(xs) - 1 from ``carry``: (carry, ys),
+        as ``ref.bucket_segment_ref`` returns them."""
+        self.prm.copy_(prm)
+        self.carry.copy_(carry)
+        ys = torch.empty((carry.shape[0], xs.shape[0], self.lay.Y),
+                         device=carry.device)
+        for s in range(xs.shape[0]):
+            self.b.fill_(b0 + s)
+            self.x.copy_(xs[s])
+            self.graph.replay()
+            self.carry.copy_(self.out)
+            ys[:, s].copy_(self.ys)
+        return self.carry.clone(), ys
+
+
+def profile_vector(dev, launches) -> None:
+    """The vector run once more under torch.profiler (device activity
+    only): the bucket_step kernels' own device time (phase 6's events
+    around each launch also hold the host's enqueue gaps), the fit
+    kernels', and the run's device-busy share of its wall time (which
+    the profiler inflates)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import run_experiment
+
+    exp = vector_experiment()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_experiment(exp, jobs=1, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.count, e.self_device_time_total / 1e6)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    mine = lambda name: [r for r in rows if name in r[0]]
+    bucket, fit = mine("bucket_segment_kernel"), mine("arma")
+    busy = sum(r[2] for r in rows)
+    n_bucket = sum(r[1] for r in bucket)
+    log(f"  profiled again: bucket_step kernels {sum(r[2] for r in bucket):.4f}"
+        f" s of device time over {n_bucket} launches, arma_fit kernels "
+        f"{sum(r[2] for r in fit):.4f} s, all device work {busy:.4f} s = "
+        f"{busy / wall:.1%} of {wall:.2f} s wall under the profiler")
+    if n_bucket != launches["bucket_step"]:
+        raise SystemExit(f"vector: the profiled run launched {n_bucket} "
+                         f"bucket_step kernels, the first "
+                         f"{launches['bucket_step']}")
+
+
+def replay_vector(vrun, errs) -> int:
+    """Every recorded segment of the run again through the plain step on
+    the card, bucket by bucket from the segment's recorded input carry
+    (one captured bucket replayed, ``PlainStepGraph``): every bucket's
+    outputs and the segment's final carry must equal the kernel's bit for
+    bit.  Returns the replica-buckets replayed."""
+    n, t0, worst, graphs = 0, time.perf_counter(), 0.0, {}
     for g in vrun["segs"]:
-        b0, b1 = g["b0"], min(g["b1"], until_b)
-        if b0 >= until_b:
-            continue
-        args = (g["lay"], g["consts"], g["prm"], g["carry"],
-                g["xs"][:b1 - b0], b0, b1)
-        want_c, want_y = ref.bucket_segment_ref(*args)
-        got_c, got_y = ((g["out"], g["ys"]) if b1 == g["b1"] else
-                        bucket_step.bucket_segment(*args))
+        key = (id(g["lay"]), g["carry"].shape[0])
+        if key not in graphs:
+            graphs[key] = PlainStepGraph(g["lay"], g["consts"], g["prm"],
+                                         g["carry"], g["xs"][0])
+        want_c, want_y = graphs[key].segment(g["prm"], g["carry"], g["xs"],
+                                             g["b0"])
+        got_c, got_y = g["out"], g["ys"]
         diff = max(float((got_c - want_c).abs().max()),
                    float((got_y - want_y).abs().max()))
         worst = max(worst, diff)
-        if not (torch.equal(got_c, want_c) and torch.equal(got_y, want_y)
-                and torch.equal(got_y, g["ys"][:, :b1 - b0])):
+        if not (torch.equal(got_c, want_c) and torch.equal(got_y, want_y)):
+            bad = int((got_y != want_y).any(dim=2).any(dim=0).nonzero()[0])\
+                if not torch.equal(got_y, want_y) else g["b1"] - g["b0"]
             raise SystemExit(f"vector: the kernel disagrees with its plain "
-                             f"version on segment [{b0}, {b1}) (max abs "
-                             f"err {diff:.3e})")
-        n += (b1 - b0) * g["carry"].shape[0]
+                             f"version on segment [{g['b0']}, {g['b1']}) "
+                             f"from bucket {g['b0'] + bad} (max abs err "
+                             f"{diff:.3e})")
+        n += (g["b1"] - g["b0"]) * g["carry"].shape[0]
     errs["bucket_step"] = max(errs["bucket_step"], worst)
-    log(f"  plain replay of the segments before bucket {until_b} (the "
-        f"first simulated day) on the card: {n} replica-buckets "
-        f"bit-identical in {time.perf_counter() - t0:.1f} s (max abs err "
-        f"{worst:.3e}, tol {BUCKET_ATOL:g})")
+    log(f"  plain replay of all {len(vrun['segs'])} segments of the run "
+        f"(both batches, every bucket) on the card, the plain step of one "
+        f"bucket in a CUDA graph: {n} replica-buckets bit-identical in "
+        f"{time.perf_counter() - t0:.1f} s (max abs err {worst:.3e}, tol "
+        f"{BUCKET_ATOL:g})")
     return n
 
 
@@ -1267,8 +1414,8 @@ def time_bucket(dev, vrun, errs, launches):
     """The bucket step at a 240-bucket segment of the run (an hour between
     two control boundaries) for its first replica and for 8 replicas:
     the kernel (CUDA events, L2 flushed), its plain version on the card,
-    the byte bound and the chain floor of the segment's barrier
-    phases."""
+    the byte bound and the chain floor of the segment's buckets
+    (``BUCKET_CHAIN``)."""
     from repro_torch.kernels import bucket_step, ref
 
     g = next(g for g in vrun["segs"]
@@ -1289,22 +1436,16 @@ def time_bucket(dev, vrun, errs, launches):
         want = ref.bucket_segment_ref(*args)
         torch.cuda.synchronize()
         t_plain = (time.perf_counter() - t0) * 1e3
-        # the plain step captured in a CUDA graph: a measurement only,
-        # never the path (one graph per segment and bucket range)
-        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            ref.bucket_segment_ref(*args)
-        torch.cuda.current_stream().wait_stream(side)
-        with torch.cuda.graph(graph):
-            captured = ref.bucket_segment_ref(*args)
-        graph.replay()             # the host enqueues ~10^5 nodes a replay:
-        torch.cuda.synchronize()   # timed by the host clock, as eager is
-        t0 = time.perf_counter()
-        for _ in range(3):
-            graph.replay()
+        # the plain step of one bucket captured in a CUDA graph, replayed
+        # bucket by bucket: a measurement only, never the path; timed by
+        # the host clock, as eager is
+        graph = PlainStepGraph(*args[:4], args[4][0])
+        graph.segment(*args[2:5], b0)
         torch.cuda.synchronize()
-        t_graph = (time.perf_counter() - t0) / 3 * 1e3
+        t0 = time.perf_counter()
+        captured = graph.segment(*args[2:5], b0)
+        torch.cuda.synchronize()
+        t_graph = (time.perf_counter() - t0) * 1e3
         if not (torch.equal(captured[0], want[0])
                 and torch.equal(captured[1], want[1])):
             raise SystemExit("bucket_step: the captured plain step "
@@ -1316,17 +1457,20 @@ def time_bucket(dev, vrun, errs, launches):
         ops_n = reps * S * lay.C * lay.J * BUCKET_OPS_PER_CELL
         t_ops = ops_n / PEAK_FLOPS[torch.float32] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        chain_ms = S * BUCKET_BARRIERS * BARRIER_CYCLES / (clock_mhz * 1e6) \
-            * 1e3
+        chain_cycles = sum(n * c for n, c in BUCKET_CHAIN.values())
+        chain_ms = S * chain_cycles / (clock_mhz * 1e6) * 1e3
         shape = (f"{S}-bucket segment [{b0}, {b1}) of the unified batch, "
                  f"R={reps}, C={lay.C} J={lay.J} L={lay.L} fp32")
         log(f"  bucket_step      {shape}: kernel {t_kernel:.4f} ms, plain "
             f"{t_plain:.1f} ms (card, eager, host clock), plain in a CUDA "
             f"graph {t_graph:.3f} ms (host clock), library n/a, bound "
             f"{max(t_ops, t_bytes):.4f} ms "
-            f"({'operations' if t_ops >= t_bytes else 'bytes'}), chain "
-            f"floor {chain_ms:.4f} ms ({S} x {BUCKET_BARRIERS} barriers x "
-            f"{BARRIER_CYCLES} cycles at {clock_mhz:.0f} MHz)")
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}; out of "
+            f"reach of a sequential step), chain floor {chain_ms:.4f} ms "
+            f"({S} buckets x {chain_cycles} cycles at {clock_mhz:.0f} MHz: "
+            + ", ".join(f"{n} x {c} {k}" for k, (n, c) in
+                        BUCKET_CHAIN.items())
+            + f"); {t_kernel / S * clock_mhz * 1e3:.0f} cycles a bucket")
         shapes.append(dict(
             ms=t_kernel, plain_ms=t_plain, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1393,12 +1537,13 @@ def main() -> int:
     for arch, n_requests, max_new in SERVED:
         log(f"[serve] {arch}, full width and depth, DPA, {n_requests} "
             f"requests of {max_new} new tokens")
-        by_run[arch], seq = serve(dev, arch, n_requests, max_new)
+        by_run[arch], seq, gap = serve(dev, arch, n_requests, max_new)
         gc.collect()             # the engine's timing hooks form a cycle
         torch.cuda.empty_cache()
         log(f"  freed: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
             f"still allocated")
-        check_fp32_decode(dev, arch, seq, max_new - 1)
+        check_fp32_decode(dev, arch, seq, max_new - 1, gap)
+        del gap
         gc.collect()
         torch.cuda.empty_cache()
     for row in rows:
@@ -1421,7 +1566,8 @@ def main() -> int:
         f"segment on the bucket_step kernel")
     vrun, vec_launches = vector(dev)
     report_vector(vrun, vec_launches, run)
-    replay_vector(vrun, int(round(86400.0 / 15.0)), errs)
+    profile_vector(dev, vec_launches)
+    replay_vector(vrun, errs)
     rows.append(time_bucket(dev, vrun, errs, vec_launches))
     for row in rows:
         if row["name"] == "arma_fit":

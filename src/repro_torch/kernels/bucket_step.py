@@ -3,13 +3,14 @@
 Port of the JAX program ``repro.sim.vector.engine._build_step`` run by
 ``_compiled_segments`` (a ``lax.scan`` over a segment of buckets,
 ``jax.vmap``-ed over replicas).  One block per replica runs every bucket
-of the segment in order, its carry in shared memory from the first
-bucket to the last; replicas never interact, so a replica's result is
-the same bits alone, in any batch and in any order.  Kernel and plain
-version (``ref.bucket_segment_ref``) round every op alike and agree bit
-for bit.  This wrapper only launches: it raises for tensors that are not
-on a CUDA device.  ``ops.bucket_segment`` picks between it and the plain
-version.
+of the segment in order: one warp holds the carry of the replica's cells
+in registers from the first bucket to the last, three more sum the
+acquisition ring for the next bucket meanwhile; replicas never interact,
+so a replica's result is the same bits alone, in any batch and in any
+order.  Kernel and plain version (``ref.bucket_segment_ref``) round
+every op alike and agree bit for bit.  This wrapper only launches: it
+raises for tensors that are not on a CUDA device.  ``ops.bucket_segment``
+picks between it and the plain version.
 """
 from __future__ import annotations
 
@@ -25,9 +26,13 @@ from repro_torch.kernels import _build, ref
 LAUNCHES = 0
 #: shared memory a block may use (227 KB)
 SMEM_BYTES = 232_448
-#: per-cell scratch arrays of one bucket (``csrc/bucket_step.cu``'s
-#: ``Tmp`` enum)
-SCRATCH_PER_CELL = 25
+#: per-cell values a bucket publishes in shared memory for other cells'
+#: folds (``csrc/bucket_step.cu``'s ``Pub`` enum)
+PUBLISHED_PER_CELL = 14
+#: buckets of outputs staged in shared memory (``YS_BUFS``)
+YS_BUFS = 3
+#: cells (C x J) a warp holds: 32 lanes x 32 cells each
+MAX_CELLS = 1024
 
 
 class Layout(ctypes.Structure):
@@ -56,14 +61,31 @@ def c_layout(lay: ref.BucketLayout) -> Layout:
     return out
 
 
-def smem_bytes(lay: ref.BucketLayout) -> int:
-    """Shared memory of one block: the carry, the parameters, the
-    per-cell constants and one bucket's scratch (the kernel's
-    ``smem_floats``)."""
+def _smem_floats(lay: ref.BucketLayout, stride: int, ybufs: int) -> int:
     cj = lay.C * lay.J
-    scratch = (SCRATCH_PER_CELL * cj + cj * lay.J + lay.J + lay.M * lay.J
-               + lay.M + 3 * lay.C)
-    return 4 * (lay.F + lay.K + lay.NC + scratch)
+    return (lay.L * stride + 2 * cj * lay.J + PUBLISHED_PER_CELL * cj
+            + 2 * lay.X + ybufs * lay.Y + 1)
+
+
+def smem_plan(lay: ref.BucketLayout):
+    """How the kernel lays the replica out in shared memory (its
+    ``smem_plan``): the ring's row stride (C x J made odd, so the 32 lanes
+    that fold one column read 32 banks, or not) and the buckets of
+    outputs staged there (``YS_BUFS``, or 0: written straight to device
+    memory); the first that fits of padded and staged, unpadded and
+    staged, unpadded and not staged."""
+    cj = lay.C * lay.J
+    for stride, ybufs in ((cj | 1, YS_BUFS), (cj, YS_BUFS)):
+        if 4 * _smem_floats(lay, stride, ybufs) <= SMEM_BYTES:
+            return stride, ybufs
+    return cj, 0
+
+
+def smem_bytes(lay: ref.BucketLayout) -> int:
+    """Shared memory of one replica's block: the ring, omega, the routing
+    matrix, the published per-cell values, two buckets' inputs and the
+    staged outputs (the kernel's ``smem_floats``)."""
+    return 4 * _smem_floats(lay, *smem_plan(lay))
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,6 +108,11 @@ def check_args(lay: ref.BucketLayout, consts, prm, carry, xs, b0: int,
             f"regions with a ring of L={lay.L} buckets needs "
             f"{smem_bytes(lay)} bytes of shared memory; the limit is "
             f"{SMEM_BYTES} (227 KB)")
+    if lay.C * lay.J > MAX_CELLS or lay.LD != ref.DRAIN_RING:
+        raise ValueError(
+            f"bucket_step: C={lay.C} x J={lay.J} cells (at most "
+            f"{MAX_CELLS}) and a drain ring of {lay.LD} rows (must be "
+            f"{ref.DRAIN_RING})")
     n_rep = carry.shape[0] if carry.dim() == 2 else -1
     want = {"consts": (consts, (lay.NC,)), "prm": (prm, (n_rep, lay.K)),
             "carry": (carry, (n_rep, lay.F)),

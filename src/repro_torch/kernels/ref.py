@@ -524,11 +524,14 @@ def _route(a, rm):
     return _fold(a[..., None] * rm, 2)
 
 
-def bucket_step_ref(lay: BucketLayout, consts, prm, carry, x, b: int):
+def bucket_step_ref(lay: BucketLayout, consts, prm, carry, x, b):
     """One bucket for R replicas, step by step as ``engine.py``'s
     ``step`` (its numbered sections).  ``consts``: per-cell arrays (C,);
     ``prm``: (R, ...); ``carry``: (R, ...); ``x``: one bucket's inputs
-    (C, J) or (C,), shared.  Returns (carry, ys), new tensors."""
+    (C, J) or (C,), shared; ``b``: the bucket's index, an int or an int64
+    tensor on the carry's device (then the step never reads it on the
+    host, and one CUDA graph of it serves every bucket).  Returns (carry,
+    ys), new tensors."""
     C, J, M, P, L, LD, dt = (lay.C, lay.J, lay.M, lay.P, lay.L, lay.LD,
                              lay.dt)
     eps = BUCKET_EPS
@@ -541,16 +544,17 @@ def bucket_step_ref(lay: BucketLayout, consts, prm, carry, x, b: int):
     delays = [consts[k].long() for k in ("swap_b", "local_b", "remote_b")]
     dev = carry["live"].device
     pri, regions, ci, j_f = lay.index(dev)
+    b = torch.as_tensor(b, dtype=torch.int64, device=dev)
 
     # -- 1. activate pending instances / reap drained ones
-    idx = b % L
+    idx = (b % L).view(1)
     ring = carry["ring"].clone()
-    live = carry["live"] + ring[:, idx]
-    ring[:, idx] = 0.0
-    idx_d = b % LD
+    live = carry["live"] + ring.index_select(1, idx)[:, 0]
+    ring.index_fill_(1, idx, 0.0)
+    idx_d = (b % LD).view(1)
     drainq = carry["drainq"].clone()
-    reap = drainq[:, idx_d].clone()
-    drainq[:, idx_d] = 0.0
+    reap = drainq.index_select(1, idx_d)[:, 0]
+    drainq.index_fill_(1, idx_d, 0.0)
     spot = carry["spot"] + _fold(reap, 1)
     warm = carry["warm"] + _pool_sum(reap, M, P)
     draining = _fold(drainq, 1)
@@ -603,7 +607,7 @@ def bucket_step_ref(lay: BucketLayout, consts, prm, carry, x, b: int):
                  0.0)
     fcv = lo(carry["fc"], 1e-9)
     hour_b = one(prm["hour_b"])
-    pos = torch.fmod(torch.full((R, 1, 1), float(b), device=dev), hour_b)
+    pos = torch.fmod(b.to(torch.float32).expand(R, 1, 1), hour_b)
     in_win = (one(prm["lt_ua"]) > 0.5) & (pos >= hour_b
                                           - one(prm["ua_win_b"]))
     up_a = (u > up) & (total < target - 0.5)
@@ -655,8 +659,9 @@ def bucket_step_ref(lay: BucketLayout, consts, prm, carry, x, b: int):
     wloc = mx_(carry["wloc"], where(_pool_sum(cold, M, P) > eps, 1.0, 0.0))
     want_dn = mn_(lo(-delta, 0.0), live)
     live_after = live - want_dn
-    row_d = (b + LD - 1) % LD
-    drainq[:, row_d] = drainq[:, row_d] + want_dn
+    row_d = ((b + LD - 1) % LD).view(1)
+    drainq.index_copy_(1, row_d, drainq.index_select(1, row_d)
+                       + want_dn[:, None])
 
     # -- 7. queue manager: park NIW, forced + capacity releases
     park_p = carry["park_p"] + hq * x["niw_p"]

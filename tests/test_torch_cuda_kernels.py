@@ -411,6 +411,21 @@ BUCKET_CASES = {
                                        dead=True),
     "no plan rows": dict(seed=9, modes=tuple(tbs.MODES), plan=False),
     "wraps the ring": dict(seed=10, modes=tuple(tbs.MODES), b0=3 * 481 - 100),
+    # one case per instantiation of the kernel's template (J = 3 above)
+    "J=1": dict(seed=11, modes=tuple(tbs.MODES), J=1),
+    "J=2": dict(seed=16, modes=tuple(tbs.MODES), J=2),
+    "J=4": dict(seed=17, modes=tuple(tbs.MODES), J=4),
+    "J=5": dict(seed=12, modes=tuple(tbs.MODES), J=5),
+    "J=8": dict(seed=18, modes=tuple(tbs.MODES), M=3, J=8),
+    "J=6 (J at run time)": dict(seed=13, modes=tuple(tbs.MODES), M=2, J=6),
+    "L=96 (whole chunks of 32 rows)": dict(seed=19, modes=tuple(tbs.MODES),
+                                           L=96),
+    "C*J=72 (8 models x 3 pools, 4 cells a lane)": dict(
+        seed=14, modes=tuple(tbs.MODES), M=8, P=3),
+    "C*J=144 (32 cells a lane), L=121": dict(
+        seed=15, modes=("lt-ua", "chiron"), M=16, P=3, L=121, buckets=24),
+    "C*J=330, outputs not staged in shared memory, L=121": dict(
+        seed=20, modes=("lt-ua",), M=110, L=121, buckets=24),
 }
 
 

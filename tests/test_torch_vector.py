@@ -168,12 +168,68 @@ def test_segment_is_its_buckets_in_turn():
     assert torch.equal(torch.cat(ys, dim=1), whole_y)
 
 
+def test_step_takes_the_bucket_as_a_tensor():
+    """The plain step with its bucket index as an int64 tensor (so one
+    CUDA graph of it replays any bucket: chip_smoke.PlainStepGraph),
+    carried bucket by bucket in static buffers across a wrap of the ring,
+    equals the segment, bit for bit."""
+    lay, consts, prm, carry, xs = [
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in bucket_step.synthetic_case(12, MODES, buckets=12)]
+    b0 = 3 * lay.L - 5
+    want_c, want_y = ref.bucket_segment_ref(lay, consts, prm, carry, xs, b0,
+                                            b0 + 12)
+    c, x = carry.clone(), xs[0].clone()
+    b = torch.zeros((), dtype=torch.int64)
+    out, y_out = torch.empty_like(carry), torch.empty((carry.shape[0], lay.Y))
+    ys = torch.empty((carry.shape[0], 12, lay.Y))
+    for s in range(12):
+        b.fill_(b0 + s)
+        x.copy_(xs[s])
+        tree, y = ref.bucket_step_ref(lay, lay.consts(consts), lay.prm(prm),
+                                      lay.carry(c), lay.xs(x), b)
+        lay.pack_into(out, tree, lay.carry_shapes, lay.carry_off)
+        lay.pack_into(y_out, y, lay.ys_shapes, lay.ys_off)
+        c.copy_(out)
+        ys[:, s].copy_(y_out)
+    assert torch.equal(c, want_c)
+    assert torch.equal(ys, want_y)
+
+
 def test_oversized_carry_is_refused():
     lay = ref.BucketLayout(16, 2, 8, 481, 15.0)
     z = torch.zeros
     with pytest.raises(ValueError, match="227 KB"):
         bucket_step.check_args(lay, z(lay.NC), z(1, lay.K), z(1, lay.F),
                                z(1, lay.X), 0, 1)
+
+
+def _block_kernel_smem(lay):
+    """Shared memory of the block-per-replica kernel the bucket step had
+    before its warp-per-replica redesign (its ``smem_floats``: the carry,
+    parameters, constants and 25 scratch arrays of one bucket), in
+    bytes."""
+    cj = lay.C * lay.J
+    return 4 * (lay.F + lay.K + lay.NC + 25 * cj + cj * lay.J + lay.J
+                + lay.M * lay.J + lay.M + 3 * lay.C)
+
+
+def test_kernel_takes_every_layout_the_block_kernel_took():
+    """The warp-per-replica kernel refuses no layout the block-per-replica
+    kernel it replaced took (shared memory within 227 KB)."""
+    z = torch.zeros
+    took = 0
+    for L in (1, 31, 32, 33, 96, 121, 481, 1441):
+        for J in (1, 2, 3, 5, 8, 13):
+            for P in (1, 2, 3):
+                for M in (1, 2, 4, 8, 16, 40, 100, 300):
+                    lay = ref.BucketLayout(M, P, J, L, 15.0)
+                    if _block_kernel_smem(lay) > bucket_step.SMEM_BYTES:
+                        continue
+                    took += 1
+                    bucket_step.check_args(lay, z(lay.NC), z(1, lay.K),
+                                           z(1, lay.F), z(1, lay.X), 0, 1)
+    assert took > 400
 
 
 # ------------------------------------------------------------------- runs
