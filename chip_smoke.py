@@ -15,28 +15,47 @@ which must pass for the run to exit 0:
    their plain PyTorch versions on the card, in bf16 and fp32, at
    StarCoder2-7B's and Zamba2-7B's attention widths (head_dim 128 and
    112, each also at the other's GQA group, g = 9 and g = 1), a long
-   cache (T = 8192 and 16384), Gemma's head_dim 256 and head_dim 160, a
-   sliding window, fully masked rows, a q tile of padded and live rows,
-   S and T off the 128-row tiles, S < 64 and one query row; the SSD
-   state scan (K3) in fp32 at Zamba2-7B's and Mamba2-370M's prefill
-   shapes, one chunk, 33 chunks from a random state, decays all 0 and
-   all 1, and strided states.  Then each is
-   timed at the served shapes beside its bound, its plain version and,
-   for attention, ``scaled_dot_product_attention`` (timed only; the port
-   never calls it; no single PyTorch call computes K3's scan);
-4. serve: StarCoder2-7B (dense), then Zamba2-7B (hybrid: 81 Mamba2
-   layers and a shared attention block after every 6), both at full
-   width and depth, bf16, random weights from a seeded generator, behind
+   cache (T = 8192 and 16384), Gemma's head_dim 256 and head_dim 160,
+   DeepSeek-V3's MLA head_dim 192 (H = Hkv = 128, S = T = 1999 and a
+   ragged 333), Llama-4 Scout's group of 5, Whisper-tiny's bidirectional
+   encoder (S = T = 1500), its cross-attention (S != T) and its decode
+   against the 1500-slot cross cache, a sliding window, fully masked
+   rows, a q tile of padded and live rows, S and T off the 128-row
+   tiles, S < 64 and one query row; the SSD state scan (K3) in fp32 at
+   Zamba2-7B's and Mamba2-370M's prefill shapes, one chunk, 33 chunks
+   from a random state, decays all 0 and all 1, and strided states.
+   Then each is timed at the served shapes beside its bound, its plain
+   version and, for attention, ``scaled_dot_product_attention`` (timed
+   only; the port never calls it; no single PyTorch call computes K3's
+   scan);
+4. serve: StarCoder2-7B (dense), Zamba2-7B (hybrid: 81 Mamba2 layers
+   and a shared attention block after every 6), Mamba2-370M (pure SSM),
+   Llama-4 Scout (MoE, 16 experts top-1 and a shared one; 8 of 48
+   layers), DeepSeek-V3 (MLA and MoE, 256 experts top-8 and a shared
+   one; its 3 dense and 2 MoE layers of 61), Pixtral-12B (VLM: 4 zero
+   patch embeddings ahead of each prompt) and Whisper-tiny (audio:
+   1500 zero frames, encoder and decoder), all at their published
+   widths, in bf16, random weights from a seeded generator (expert
+   stacks drawn expert by expert), each freed before the next, behind
    ``ServingEngine`` with DPA scheduling: 8 requests of 100-2000 prompt
-   tokens, 32 new tokens each; then Mamba2-370M (pure SSM) at full size
-   with 4 requests of 16 new tokens.  Each run's launch counts must
-   match its served work (K3 once per SSM layer per prefill; K2 and K1
-   once per attention layer or group per prefill and per decode step),
-   and the longest request's last decode logits are held to a full
-   forward over its prompt and generated tokens: in bf16 for the dense
-   model; for every model, the same tokens through the same model in
-   fp32, a prefill and 31 decode steps against a full forward
-   (``SERVE_LOGIT_TOL``, ``FP32_LOGIT_TOL``);
+   tokens and 32 new tokens each (Mamba2-370M and Whisper-tiny 4 of
+   16).  Each run's launch counts must match its served work (K3 once
+   per SSM layer per prefill; K2 once per attention layer or group per
+   prefill, and for Whisper also once per encoder layer and
+   cross-attention; K1 once per attention layer or group per decode
+   step, for Whisper twice, for MLA never: its latent attention is
+   plain), and the longest request's last decode logits are held to a
+   full forward over its prompt and generated tokens: in bf16 for the
+   dense, VLM and audio models (``SERVE_LOGIT_TOL``; the SSM, hybrid and
+   MoE models' gaps are printed, with the pairs the MoE forward dropped
+   at capacity); for every model, the same tokens through the same
+   model in fp32, a prefill and all but one of its new tokens as decode
+   steps against a full forward (``FP32_LOGIT_TOL``), at a capacity
+   where nothing drops and, where the served depth does not fit in
+   fp32, at the depth of ``FP32_CUT``.  Each prints prefill tokens/s,
+   ms per decode step, peak memory and a profiled prefill and decode
+   step with the device-busy share and the MoE expert products' and
+   MLA latent attention's shares;
 5. simulate: the paper's main path.  A 3-day trace
    (``generate_trace(WorkloadSpec(days=3, scale=0.05, seed=0))``, about
    745k requests) through ``build_stack(...).simulate`` on the fully
@@ -101,6 +120,7 @@ The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -278,25 +298,47 @@ def time_ms(fn, flush, reps: int = 10, warmup: int = 2) -> float:
     return sum(times) / reps
 
 
-def profiled(label: str, fn):
+def ranged(name: str, fn):
+    """fn inside a profiler range ``name``."""
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def profiled(label: str, fn, ranges=None):
     """Run fn once under torch.profiler and print where its device time
     went: wall time (inflated by the profiler), device-busy share, the
     kernels with the most self device time and the port's own kernels,
-    and the host ops with the most self CPU time."""
+    the host ops with the most self CPU time and, for each of
+    ``ranges`` (name: the (module of ``repro_torch.models``, function)
+    pairs run inside a range of that name), the device time of the
+    kernels launched inside it and its share of the busy time."""
+    import importlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ranges = ranges or {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+    with contextlib.ExitStack() as patches:
+        for name, targets in ranges.items():
+            for mod, fname in targets:
+                module = importlib.import_module(f"repro_torch.models.{mod}")
+                patches.enter_context(mock.patch.object(
+                    module, fname, ranged(name, getattr(module, fname))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
+                   for e in events
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0
+                   and e.key not in ranges), reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"  [profile] {label}: wall {wall_ms:.2f} ms under the profiler, "
         f"device busy {busy:.2f} ms ({busy / wall_ms:.0%}), "
@@ -305,10 +347,20 @@ def profiled(label: str, fn):
     for ms, count, key in rows[:8] + ours:
         log(f"    {ms:8.3f} ms {ms / busy:5.1%} x{count:<5d} {key[:80]}")
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
+                   for e in events
                    if e.device_type == DeviceType.CPU), reverse=True)
     log("    host ops with the most self CPU time: " + ", ".join(
         f"{key} {ms:.1f} ms x{count}" for ms, count, key in host[:6]))
+    for name in ranges:
+        hits = [e for e in events if e.key == name
+                and e.device_type == DeviceType.CPU]
+        if not hits:
+            continue
+        ms = sum(e.device_time_total for e in hits) / 1e3
+        share = f"{ms / busy:.1%} of the busy time" if ms > 0 \
+            else "device time not measured (no kernels attributed)"
+        log(f"    range {name}: {sum(e.count for e in hits)} calls, their "
+            f"kernels {ms:.3f} ms, {share}")
     return out
 
 
@@ -318,22 +370,24 @@ def randn(dev, shape, dtype, gen):
 
 
 def flash_case(dev, dtype, gen, B, H, Hkv, S, T, hd, window=0,
-               masked=False, padded=False):
+               masked=False, padded=False, causal=True):
     """Inputs laid out as the model passes them: transposed views of
     (B, S, H, hd) activations.  ``padded``: the first q tile of sequence
-    0 holds padding (q_pos -1) and live rows."""
+    0 holds padding (q_pos -1) and live rows; ``causal=False``: every
+    pair kept (an encoder, cross-attention)."""
     q = randn(dev, (B, S, H, hd), dtype, gen).transpose(1, 2)
     k = randn(dev, (B, T, Hkv, hd), dtype, gen).transpose(1, 2)
     v = randn(dev, (B, T, Hkv, hd), dtype, gen).transpose(1, 2)
     qpos = (torch.arange(S, device=dev, dtype=torch.int32)
-            + (T - S)).repeat(B, 1)
+            + max(T - S, 0)).repeat(B, 1)
     kpos = torch.arange(T, device=dev, dtype=torch.int32).repeat(B, 1)
     if masked:   # padding rows, and a gap no windowed row can see past
         qpos[0, : S // 8] = -1
         kpos[-1, T // 4: 3 * T // 4] = -1
     if padded:
         qpos[0, :70] = -1
-    return (q, k, v, qpos, kpos), dict(scale=hd ** -0.5, window=window)
+    return (q, k, v, qpos, kpos), dict(scale=hd ** -0.5, window=window,
+                                       causal=causal)
 
 
 def decode_case(dev, dtype, gen, B, H, Hkv, T, hd, cur, window=0,
@@ -407,6 +461,20 @@ def check_kernels(dev):
                                      hd=128)),
         ("hd=160 S=T=300", dict(B=1, H=8, Hkv=2, S=300, T=300, hd=160)),
         ("hd=32 S=T=300", dict(B=1, H=8, Hkv=2, S=300, T=300, hd=32)),
+        ("deepseek-v3 MLA hd=192 S=T=1999", dict(B=1, H=128, Hkv=128,
+                                                 S=1999, T=1999, hd=192)),
+        ("MLA hd=192 ragged S=T=333", dict(B=1, H=128, Hkv=128, S=333,
+                                           T=333, hd=192)),
+        ("hd=192 g=4 S=T=70", dict(B=2, H=8, Hkv=2, S=70, T=70, hd=192)),
+        ("whisper encoder bidir S=T=1500", dict(B=1, H=6, Hkv=6, S=1500,
+                                                T=1500, hd=64,
+                                                causal=False)),
+        ("whisper cross S=333 T=1500", dict(B=2, H=6, Hkv=6, S=333,
+                                            T=1500, hd=64, causal=False)),
+        ("bidir hd=192 S=T=200", dict(B=1, H=16, Hkv=16, S=200, T=200,
+                                      hd=192, causal=False)),
+        ("llama4 prefill g=5 S=T=700", dict(B=1, H=40, Hkv=8, S=700,
+                                            T=700, hd=128)),
     ]
     decode_cases = [
         ("starcoder2 decode B=4 W=4096", dict(
@@ -428,6 +496,12 @@ def check_kernels(dev):
             B=4, H=32, Hkv=32, T=4096, hd=128, cur=[4095, 1999, 777, 130])),
         ("ragged W=1000, one chunk", dict(B=1, H=9, Hkv=1, T=1000, hd=128,
                                           cur=[999])),
+        ("llama4 decode g=5 B=4 W=4096", dict(
+            B=4, H=40, Hkv=8, T=4096, hd=128, cur=[4095, 1999, 777, 130])),
+        ("whisper self hd=64 B=4 W=4096", dict(
+            B=4, H=6, Hkv=6, T=4096, hd=64, cur=[4095, 1999, 777, 130])),
+        ("whisper cross W=1500 every slot", dict(
+            B=4, H=6, Hkv=6, T=1500, hd=64, cur=[1499] * 4)),
     ]
     scan_cases = [
         ("zamba2 b=1 c=8 h=112 p=n=64", dict(b=1, c=8, h=112, p=64, n=64)),
@@ -557,8 +631,11 @@ def time_kernels(dev, errs):
     """Each kernel at the served shapes: the kernel, its plain version,
     the library call that computes the same function where there is one,
     and the bound computed from these inputs.  K2 and K1 are timed at
-    StarCoder2-7B's widths (the row) and Zamba2-7B's hd = 112
-    (``other_shapes``), K3 at Zamba2-7B's prefill of 2000 tokens."""
+    StarCoder2-7B's widths (the row) and, in ``other_shapes``, at
+    Zamba2-7B's hd = 112, Llama-4 Scout's and Pixtral-12B's widths,
+    DeepSeek-V3's MLA prefill (hd 192, V padded), Whisper-tiny's encoder,
+    cross-attention and decode; K3 at Zamba2-7B's prefill of 2000
+    tokens."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as dec
@@ -571,23 +648,35 @@ def time_kernels(dev, errs):
     flush = L2Flush(dev)
     cases = []
 
-    def flash_row(label, B, H, Hkv, S, hd):
-        """K2 at an S-token prompt, causal, positions 0..S-1."""
-        args, opts = flash_case(dev, bf16, gen, B, H, Hkv, S, S, hd)
+    def flash_row(label, B, H, Hkv, S, hd, T=None, causal=True, vd=None):
+        """K2 at an S-token prompt (positions 0..S-1) over T keys: causal,
+        or with every pair kept.  ``vd``: V's own head dim, zero-padded
+        to hd for the kernel as the MLA prefill does; the bound and the
+        library call take the unpadded V."""
+        T = T or S
+        args, opts = flash_case(dev, bf16, gen, B, H, Hkv, S, T, hd,
+                                causal=causal)
         q, k, v, _, _ = args
-        kept = S * (S + 1) // 2                    # causal (q, k) pairs
+        vd = vd or hd
+        if vd < hd:
+            v = v.clone()
+            v[..., vd:] = 0
+            args = (q, k, v) + args[3:]
+        kept = S * (S + 1) // 2 if causal else S * T   # kept (q, k) pairs
         cases.append(dict(
             name="flash_attention", dtype=bf16,
             fn=lambda: fa.flash_attention(*args, **opts),
             plain=lambda: ref.flash_attention_ref(*args, **opts),
             library=lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=opts["scale"],
+                q, k, v[..., :vd], is_causal=causal, scale=opts["scale"],
                 enable_gqa=True),
-            flops=4 * B * H * hd * kept,           # QK^T and PV
-            bytes=(2 * B * H * S * hd + 2 * B * Hkv * S * hd) * 2
-            + 2 * B * S * 4,
-            shape=f"{label}: B={B} H={H} Hkv={Hkv} S=T={S} hd={hd} bf16 "
-                  f"causal",
+            flops=2 * B * H * (hd + vd) * kept,    # QK^T and PV
+            bytes=(B * H * S * (hd + vd) + B * Hkv * T * (hd + vd)) * 2
+            + B * (S + T) * 4,
+            shape=f"{label}: B={B} H={H} Hkv={Hkv} S={S} T={T} hd={hd}"
+                  + (f" (V {vd}, zero-padded to {hd}; bound unpadded)"
+                     if vd < hd else "")
+                  + f" bf16 {'causal' if causal else 'every pair kept'}",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:26"))
 
@@ -612,10 +701,22 @@ def time_kernels(dev, errs):
             source="src/repro_torch/kernels/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:23"))
 
+    fill = [1999, 1499, 999, 499]
     flash_row("starcoder2-7b", 1, 36, 4, 2000, 128)
-    decode_row("starcoder2-7b", 4, 36, 4, 4096, 128, [1999, 1499, 999, 499])
+    decode_row("starcoder2-7b", 4, 36, 4, 4096, 128, fill)
     flash_row("zamba2-7b", 1, 32, 32, 2000, 112)
-    decode_row("zamba2-7b", 4, 32, 32, 4096, 112, [1999, 1499, 999, 499])
+    decode_row("zamba2-7b", 4, 32, 32, 4096, 112, fill)
+    flash_row("llama4-scout-17b-a16e", 1, 40, 8, 2000, 128)
+    decode_row("llama4-scout-17b-a16e", 4, 40, 8, 4096, 128, fill)
+    flash_row("deepseek-v3-671b MLA", 1, 128, 128, 2000, 192, vd=128)
+    flash_row("pixtral-12b", 1, 32, 8, 2004, 128)
+    decode_row("pixtral-12b", 4, 32, 8, 4096, 128,
+               [c + 4 for c in fill])
+    flash_row("whisper-tiny encoder", 1, 6, 6, 1500, 64, causal=False)
+    flash_row("whisper-tiny cross", 1, 6, 6, 2000, 64, T=1500,
+              causal=False)
+    decode_row("whisper-tiny self", 4, 6, 6, 4096, 64, fill)
+    decode_row("whisper-tiny cross", 4, 6, 6, 1500, 64, [1499] * 4)
 
     # K3 at Zamba2-7B's prefill of a 2000-token prompt: 8 chunks of 256
     b, c, h, p, n = 1, 8, 112, 64, 64
@@ -661,30 +762,91 @@ def time_kernels(dev, errs):
 #: (arch, requests, new tokens per request) served in turn; the kernels
 #: each run must launch follow from its config (``expected_launches``)
 SERVED = (("starcoder2-7b", 8, 32), ("zamba2-7b", 8, 32),
-          ("mamba2-370m", 4, 16))
+          ("mamba2-370m", 4, 16), ("llama4-scout-17b-a16e", 8, 32),
+          ("deepseek-v3-671b", 8, 32), ("pixtral-12b", 8, 32),
+          ("whisper-tiny", 4, 16))
+#: depth cuts of the served models that do not fit one card whole, in
+#: bf16: Llama-4 Scout 8 of 48 layers (about 2.21 B params a layer and
+#: 2.07 B of embeddings: 39.6 GB), DeepSeek-V3 5 of 61 (its 3 dense
+#: layers, 1.17 GB each, and 2 MoE layers of 256 routed experts and a
+#: shared one, 23.0 GB each; 3.7 GB of embeddings: 53 GB); every width
+#: is the published one
+SERVED_CUT = {"llama4-scout-17b-a16e": dict(num_layers=8),
+              "deepseek-v3-671b": dict(num_layers=5)}
+#: the depths of the fp32 check where the served depth does not fit in
+#: fp32: Llama-4 Scout 4 layers (43.6 GB), DeepSeek-V3 1 dense and 1 MoE
+#: layer (55 GB)
+FP32_CUT = {"llama4-scout-17b-a16e": dict(num_layers=4),
+            "deepseek-v3-671b": dict(num_layers=2, num_dense_layers=1)}
+#: profiler ranges around the MoE expert products (the prefill dispatch's
+#: and decode's per-token gather) and MLA's latent attention: (module,
+#: function) patched with a ``record_function`` of the range's name
+RANGES = {"moe.expert_products": (("moe", "_expert_products"),
+                                  ("moe", "_gather_experts")),
+          "mla.latent_attention": (("attention", "_mla_latent_attention"),)}
+
+
+def served_config(arch: str, cut=None):
+    """The arch's config, cut to ``cut`` (``SERVED_CUT`` by default)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    cut = SERVED_CUT.get(arch, {}) if cut is None else cut
+    return dataclasses.replace(cfg, **cut) if cut else cfg
+
+
+def depth_note(cfg) -> str:
+    from repro_torch.configs import get_arch
+
+    full = get_arch(cfg.name)
+    if cfg.num_layers == full.num_layers:
+        return "full depth"
+    dense = (f", {cfg.num_dense_layers} of them dense"
+             if cfg.num_experts and cfg.num_dense_layers else "")
+    return f"depth cut to {cfg.num_layers} of {full.num_layers} layers{dense}"
 
 
 def expected_launches(cfg, prefill_calls: int, decode_calls: int):
     """K3 once per SSM layer per prefill; K2 (prefill) and K1 (decode)
-    once per attention layer, or per shared-block group of the hybrid."""
+    once per attention layer, or per shared-block group of the hybrid;
+    an encoder-decoder also runs K2 once per encoder layer and per
+    cross-attention in a prefill, and K1 once per cross-attention in a
+    decode; MLA decode runs no K1 (its latent attention is plain)."""
     from repro_torch.models import transformer as tfm
 
-    if not tfm.is_ssm(cfg):
-        n_ssm, n_attn = 0, cfg.num_layers
-    else:
+    n_ssm, n_attn, n_dec = 0, cfg.num_layers, cfg.num_layers
+    if tfm.is_ssm(cfg):
         n_ssm = cfg.num_layers
-        n_attn = len(tfm._hybrid_groups(cfg)) if cfg.attn_every else 0
+        n_attn = n_dec = (len(tfm._hybrid_groups(cfg)) if cfg.attn_every
+                          else 0)
+    elif cfg.family == "audio":
+        n_attn = cfg.encoder_layers + 2 * cfg.num_layers
+        n_dec = 2 * cfg.num_layers
+    elif cfg.use_mla:
+        n_dec = 0
     return {"flash_attention": n_attn * prefill_calls,
-            "decode_attention": n_attn * decode_calls,
+            "decode_attention": n_dec * decode_calls,
             "ssd_scan": n_ssm * prefill_calls}
 
 
+def full_forward(cfg, params, seq, dev):
+    """Logits of a full forward over ``seq`` with the engine's inputs
+    (``prefill_batch``), and the MoE pairs it dropped at capacity."""
+    from repro_torch.models import model, moe
+    from repro_torch.serving.engine import prefill_batch
+
+    batch, _ = prefill_batch(cfg, torch.tensor([seq], device=dev))
+    moe.DROPPED = 0
+    logits = model.forward(cfg, params, batch)[0]
+    return logits, moe.DROPPED
+
+
 def serve(dev, arch: str, n_requests: int, max_new: int):
-    """Serve ``arch`` at full size.  Returns its kernel launch counts, the
-    longest request's prompt and generated tokens but the last, and its
-    bf16 decode gap: the relative L2 error of its last decode logits and
-    the bf16 full forward's logits they are held to."""
-    from repro_torch.configs import get_arch
+    """Serve ``arch`` at full width (depth cut by ``SERVED_CUT``).
+    Returns its kernel launch counts, the longest request's prompt and
+    generated tokens but the last, and its bf16 decode gap: the relative
+    L2 error of its last decode logits and the bf16 full forward's
+    logits they are held to."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
@@ -692,16 +854,17 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
     from repro_torch.models import model
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_arch(arch)
+    cfg = served_config(arch)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"  {cfg.name} ({cfg.family}): {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params / 1e9:.3f} B params in {cfg.dtype}, "
-        f"init {time.perf_counter() - t0:.1f} s")
+    log(f"  {cfg.name} ({cfg.family}): {cfg.num_layers} layers "
+        f"({depth_note(cfg)}), d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params in {cfg.dtype}, init "
+        f"{time.perf_counter() - t0:.1f} s")
 
     eng = ServingEngine(cfg, params, max_batch=4, max_seq=4096,
                         scheduler="dpa", device=dev)
@@ -726,7 +889,7 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
     def timed(fn, kind, label, ntok):
         stats[f"{kind}_calls"] += 1
         if stats[f"{kind}_calls"] == PROFILED_CALL:
-            return profiled(label, fn)
+            return profiled(label, fn, ranges=RANGES)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
@@ -792,19 +955,21 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
     # full forward over its prompt and all but its last generated token.
     r = max(reqs, key=lambda x: len(x.prompt))
     seq = list(r.prompt) + r.tokens[:-1]
-    full, _, _ = model.forward(
-        cfg, params, {"tokens": torch.tensor([seq], device=dev)})
+    full, dropped = full_forward(cfg, params, seq, dev)
     ref_logits = full[0, -1].float()
     got = last_logits[r.rid]
     rel = float((got - ref_logits).norm() / ref_logits.norm())
     mx = float((got - ref_logits).abs().max())
-    bounded = cfg.family == "dense"
+    bounded = cfg.family in ("dense", "vlm", "audio")
+    drops = (f"; the full forward dropped {dropped} (token, expert) pairs "
+             f"at capacity {cfg.capacity_factor:g}" if cfg.num_experts
+             else "")
     log(f"  req {r.rid}: last decode logits vs full forward over {len(seq)} "
         f"tokens: rel L2 {rel:.3e} "
         f"({f'tol {SERVE_LOGIT_TOL:g}' if bounded else 'bf16, not bounded'})"
         f", max abs {mx:.3e} of max |logit| "
         f"{float(ref_logits.abs().max()):.3f}, argmax {int(got.argmax())} vs "
-        f"{int(ref_logits.argmax())}, emitted {r.tokens[-1]}")
+        f"{int(ref_logits.argmax())}, emitted {r.tokens[-1]}{drops}")
     if not (torch.isfinite(got).all()
             and (rel <= SERVE_LOGIT_TOL or not bounded)):
         raise SystemExit(f"serve {arch}: decode logits disagree with the "
@@ -812,46 +977,75 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
     return launches, seq, (rel, ref_logits)
 
 
+def drop_free(cfg, params, seq, steps, dev):
+    """The config at a capacity factor (1.25 doubled until nothing drops)
+    at which neither the full forward over ``seq`` nor the prefill of all
+    but its last ``steps`` tokens drops a pair; with its full forward's
+    logits.  Without experts, the config as it is."""
+    while True:
+        full, dropped = full_forward(cfg, params, seq, dev)
+        if cfg.num_experts:
+            dropped += full_forward(cfg, params, seq[:len(seq) - steps],
+                                    dev)[1]
+        if not dropped:
+            return cfg, full[0, -1].float()
+        cfg = dataclasses.replace(cfg, capacity_factor=2 * cfg.capacity_factor)
+
+
 def check_fp32_decode(dev, arch: str, seq, steps: int, bf16_gap) -> float:
     """``seq`` through ``arch`` in fp32 (the same seeded draws as the
     served bf16 weights, before rounding): a prefill of all but the last
     ``steps`` tokens, ``steps`` decode steps over those, and the last
-    logits against a full forward over ``seq``.  ``bf16_gap`` (the
-    served bf16 decode's gap and the bf16 full forward's logits) is
-    printed beside the yardstick of the bf16 full forward's error against
-    this fp32 full forward."""
-    from repro_torch.configs import get_arch
+    logits against a full forward over ``seq``, at a capacity where
+    neither drops a pair.  Where the served depth does not fit in fp32
+    (``FP32_CUT``), and for every MoE model (whose served forward may
+    drop), the yardstick's bf16 full forward is rerun at the fp32 check's
+    depth and capacity first.  ``bf16_gap`` (the served bf16 decode's gap
+    and the bf16 full forward's logits) is printed beside the yardstick:
+    the bf16 full forward's error against this fp32 full forward."""
     from repro_torch.models import model
-    from repro_torch.serving.engine import _write_slot
+    from repro_torch.serving.engine import _write_slot, prefill_batch
 
-    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    gap, bf16_full = bf16_gap
+    cut = FP32_CUT.get(arch)
+    base = served_config(arch, cut)
+    n = len(seq)
+    if cut or base.num_experts:
+        params = model.init(base, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        base, bf16_full = drop_free(base, params, seq, steps, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(base, dtype="float32")
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
                         device=dev)
+    cfg, want = drop_free(cfg, params, seq, steps, dev)
     toks = torch.tensor([seq], device=dev)
-    n = len(seq)
-    want = model.forward(cfg, params, {"tokens": toks})[0][0, -1].float()
-    _, pre, _ = model.forward(cfg, params, {"tokens": toks[:, :n - steps]},
-                              return_cache=True)
-    cache = model.init_decode_cache(cfg, 1, n, device=dev)
+    pre_batch, offset = prefill_batch(cfg, toks[:, :n - steps])
+    _, pre, _ = model.forward(cfg, params, pre_batch, return_cache=True)
+    cache = model.init_decode_cache(cfg, 1, n + offset, device=dev)
     _write_slot(cache, pre, 0)
     for t in range(n - steps, n):
-        pos = torch.tensor([t], dtype=torch.int32, device=dev)
+        pos = torch.tensor([t + offset], dtype=torch.int32, device=dev)
         logits, cache = model.decode_step(cfg, params, toks[:, t:t + 1],
                                           cache, pos)
     got = logits[0, 0].float()
     rel = float((got - want).norm() / want.norm())
-    log(f"  fp32: {steps} decode steps after a prefill of {n - steps} "
-        f"tokens vs full forward over {n}: rel L2 {rel:.3e} (tol "
-        f"{FP32_LOGIT_TOL:g}), argmax {int(got.argmax())} vs "
+    where = depth_note(cfg) + (f", capacity {cfg.capacity_factor:g}, 0 "
+                               f"pairs dropped" if cfg.num_experts else "")
+    log(f"  fp32 ({where}): {steps} decode steps after a prefill of "
+        f"{n - steps} tokens vs full forward over {n}: rel L2 {rel:.3e} "
+        f"(tol {FP32_LOGIT_TOL:g}), argmax {int(got.argmax())} vs "
         f"{int(want.argmax())}")
     if not (rel <= FP32_LOGIT_TOL and torch.isfinite(got).all()):
         raise SystemExit(f"{arch}: fp32 decode logits disagree with the "
                          f"full forward")
-    gap, bf16_full = bf16_gap
     yard = float((bf16_full - want).norm() / want.norm())
-    log(f"  bf16: decode vs full forward rel L2 {gap:.3e}; yardstick, the "
-        f"bf16 full forward vs the fp32 full forward {yard:.3e} (gap / "
-        f"yardstick {gap / yard:.2f})")
+    log(f"  bf16: decode vs full forward rel L2 {gap:.3e} (served depth); "
+        f"yardstick, the bf16 full forward vs the fp32 full forward "
+        f"{yard:.3e} ({depth_note(cfg)}; gap / yardstick "
+        f"{gap / yard:.2f})")
     return rel
 
 
@@ -1488,6 +1682,7 @@ def time_bucket(dev, vrun, errs, launches):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1496,8 +1691,8 @@ def main() -> int:
               "(src/repro_torch not found)", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False   # the port's default:
+    torch.backends.cudnn.allow_tf32 = False         # fp32 is full fp32
     smi = smi_line()
     log(f"[device] {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
@@ -1535,7 +1730,8 @@ def main() -> int:
 
     by_run = {}
     for arch, n_requests, max_new in SERVED:
-        log(f"[serve] {arch}, full width and depth, DPA, {n_requests} "
+        log(f"[serve] {arch}, full width, "
+            f"{depth_note(served_config(arch))}, DPA, {n_requests} "
             f"requests of {max_new} new tokens")
         by_run[arch], seq, gap = serve(dev, arch, n_requests, max_new)
         gc.collect()             # the engine's timing hooks form a cycle
@@ -1574,6 +1770,8 @@ def main() -> int:
             row["launches_by_run"]["vector (7 strategies)"] = \
                 vec_launches["arma_fit"]
 
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
+        f" wall")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@
 // (B,S,H,hd) views in place: no copies or transposes, but 16-byte
 // aligned base addresses and strides, which the wrapper checks.  Head
 // dims are padded to a multiple of 64 (16, 32 and 64 to 64, 112 and 128
-// to 128, 160 to 192) by the TMA zero fill.
+// to 128, 160 to 192) by the TMA zero fill; 192 (MLA's nope + rope
+// width, V zero-padded to it by the caller) and 256 need none.
 //
 // fp32: `flash_fwd`, scalar fp32 FMAs from shared memory (never TF32).
 // One 64-row q tile per block walks 32-key tiles with 16-byte loads; a
@@ -658,7 +659,8 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
       case 64: return launch_wgmma<64>(a, st);
       case 112: return launch_wgmma<128>(a, st);
       case 128: return launch_wgmma<128>(a, st);
-      case 160: return launch_wgmma<192>(a, st);
+      case 160:
+      case 192: return launch_wgmma<192>(a, st);
       case 256: return launch_wgmma<256>(a, st);
       default: return cudaErrorInvalidValue;
     }
@@ -670,6 +672,7 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
     case 112: return launch<float, 112>(a, st);
     case 128: return launch<float, 128>(a, st);
     case 160: return launch<float, 160>(a, st);
+    case 192: return launch<float, 192>(a, st);
     case 256: return launch<float, 256>(a, st);
     default: return cudaErrorInvalidValue;
   }

@@ -24,7 +24,7 @@ from repro_torch.kernels import _build
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
 
-HEAD_DIMS = (16, 32, 64, 112, 128, 160, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 160, 192, 256)
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,12 +3,16 @@
 Drives the continuous-batching :class:`ServingEngine` with a mixed
 IW-F/IW-N request stream (every third request IW-F, TTFT deadlines
 +2/+20 steps after arrival) and a SageServe scheduler (default DPA),
-printing TTFT/E2E step counts.  ``--arch`` takes any dense, SSM or
-hybrid architecture (``starcoder2-7b``, ``mamba2-370m``, ``zamba2-7b``,
-...).  It serves the full-size architecture on CUDA by default;
+printing TTFT/E2E step counts.  ``--arch`` takes every architecture of
+``configs.ARCHS``: dense (``starcoder2-7b``, ``qwen2-72b``, ...), SSM and
+hybrid (``mamba2-370m``, ``zamba2-7b``), MoE (``llama4-scout-17b-a16e``,
+``deepseek-v3-671b`` with MLA), VLM (``pixtral-12b``) and audio
+(``whisper-tiny``).  It serves the full-size architecture on CUDA by
+default, after checking that its weights fit the card's free memory
+(:func:`check_fits`: full-size DeepSeek-V3 does not fit one card, and
+the launcher says so instead of running out of memory midway);
 ``--smoke`` selects the reduced variant and ``--device cpu`` runs on the
-CPU.  Weights are random, drawn from a
-seeded generator.
+CPU.  Weights are random, drawn from a seeded generator.
 """
 from __future__ import annotations
 
@@ -23,7 +27,23 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_arch, reduce_for_smoke
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_mod
+from repro_torch.models.layers import model_dtype
 from repro_torch.serving.engine import ServeRequest, ServingEngine
+
+
+def check_fits(cfg: ModelConfig, device: torch.device) -> None:
+    """Raise unless the config's weights (``param_count()`` in its
+    dtype) fit the free memory of CUDA ``device``; no check on the CPU."""
+    if device.type != "cuda":
+        return
+    need = cfg.param_count() * model_dtype(cfg).itemsize
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise RuntimeError(
+            f"{cfg.name}: its weights take {need / 1e9:.1f} GB "
+            f"({cfg.param_count():,} params in {cfg.dtype}) but {device} "
+            f"has {free / 1e9:.1f} GB free; serve the --smoke variant or a "
+            f"smaller architecture")
 
 
 def make_requests(cfg: ModelConfig, n: int, *, max_new: int,
@@ -62,6 +82,7 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
+    check_fits(cfg, dev)
     params = model_mod.init(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
     eng = ServingEngine(cfg, params, max_batch=args.max_batch, max_seq=256,

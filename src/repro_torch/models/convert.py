@@ -3,11 +3,13 @@
 ``params_from_reference(cfg, tree)`` takes the reference's parameter tree
 as plain arrays (``unbox(repro.models.model.init(cfg, key))``, converted
 leaf by leaf with ``np.asarray``), whose layer leaves (``dense_layers``,
-or the SSM ``layers``) are stacked along a leading (L, ...) axis, and
-returns the port's :class:`~repro_torch.models.transformer.LM` holding
-the same values: leaf ``layers.mixer.in_proj[i]`` becomes parameter
+``moe_layers``, the SSM ``layers``, the encoder-decoder's ``enc_layers``
+and ``dec_layers``) are stacked along a leading axis as long as the
+stack, and returns the port's model (``model.module(cfg)``) holding the
+same values: leaf ``layers.mixer.in_proj[i]`` becomes parameter
 ``layers.{i}.mixer.in_proj``.  Unstacked leaves, such as the hybrid's
-``shared_attn``, keep their names.
+``shared_attn`` or the encoder's ``enc_pos`` and ``enc_norm``, keep
+their names.
 Every leaf must map onto exactly one parameter of the same shape, and
 every parameter must be covered.
 """
@@ -17,13 +19,15 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer as tfm
+from repro_torch.models import model as model_mod
 
-#: reference subtrees whose leaves are stacked over the layers
-STACKED = ("dense_layers.", "layers.")
+#: reference subtrees whose leaves are stacked over their layers
+STACKED = ("dense_layers.", "moe_layers.", "enc_layers.", "dec_layers.",
+           "layers.")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -45,9 +49,9 @@ def _tensor(x) -> torch.Tensor:
 
 @torch.no_grad()
 def params_from_reference(cfg: ModelConfig, tree: Mapping,
-                          device: DeviceLike = None) -> tfm.LM:
-    """The port's LM with the reference tree's values, on ``device``."""
-    lm = tfm.LM(cfg, resolve_device(device))
+                          device: DeviceLike = None) -> nn.Module:
+    """The port's model with the reference tree's values, on ``device``."""
+    lm = model_mod.module(cfg, resolve_device(device))
     params = dict(lm.named_parameters())
     assigned = set()
     for name, leaf in _flatten(tree).items():
@@ -55,11 +59,11 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping,
         stack = next((s for s in STACKED if name.startswith(s)), None)
         if stack is not None:
             rest = name[len(stack):]
-            if src.shape[0] != cfg.num_layers:
+            depth = len(getattr(lm, stack[:-1], ()))
+            if src.shape[0] != depth:
                 raise ValueError(f"{name}: leading axis {src.shape[0]} is "
-                                 f"not num_layers={cfg.num_layers}")
-            targets = [(f"{stack}{i}.{rest}", src[i])
-                       for i in range(cfg.num_layers)]
+                                 f"not the port's {depth} {stack[:-1]}")
+            targets = [(f"{stack}{i}.{rest}", src[i]) for i in range(depth)]
         else:
             targets = [(name, src)]
         for tname, value in targets:

@@ -2,28 +2,21 @@
 
 Each parameter container is an ``nn.Module`` whose attribute names are
 the reference's param-tree keys (``scale``/``bias``, ``wi``/``wg``/``wo``,
-``tok``/``head``), with the reference's shapes: weights are (in, out)
-and applied as ``x @ w``.  The ``apply_*`` functions are plain
+``tok``/``head``/``pos``), with the reference's shapes: weights are
+(in, out) and applied as ``x @ w``.  The ``apply_*`` functions are plain
 functions on tensors, as in the reference.  Parameters do not require
 grad: this slice serves.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-
-ROADMAP_ENTRY = "ROADMAP.md Queue 1, 'Remaining model families'"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a family or variant this slice of the port lacks."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({ROADMAP_ENTRY})")
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -51,13 +44,18 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
 # --------------------------------------------------------------------------
 
 class Norm(nn.Module):
-    """``scale`` (fp32) and, for layernorm, ``bias`` (fp32)."""
+    """``scale`` (fp32) and, for layernorm, ``bias`` (fp32), ``width``
+    wide (``d_model`` unless given: MLA's ``q_norm``/``kv_norm`` are
+    the LoRA ranks wide and have no bias)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 width: Optional[int] = None,
+                 with_bias: Optional[bool] = None):
         super().__init__()
-        self.scale = param((cfg.d_model,), torch.float32, device)
-        if cfg.norm == "layernorm":
-            self.bias = param((cfg.d_model,), torch.float32, device)
+        width = width or cfg.d_model
+        self.scale = param((width,), torch.float32, device)
+        if cfg.norm == "layernorm" if with_bias is None else with_bias:
+            self.bias = param((width,), torch.float32, device)
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
@@ -108,11 +106,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # --------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """``wi`` (d, d_ff), ``wo`` (d_ff, d), and ``wg`` for gated acts."""
+    """``wi`` (d, d_ff), ``wo`` (d_ff, d), and ``wg`` for gated acts;
+    ``d_ff`` defaults to the config's (the MoE shared expert is
+    ``num_shared_experts * moe_d_ff`` wide)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 d_ff: Optional[int] = None):
         super().__init__()
-        dt, d, f = model_dtype(cfg), cfg.d_model, cfg.d_ff
+        dt, d, f = model_dtype(cfg), cfg.d_model, d_ff or cfg.d_ff
         self.wi = param((d, f), dt, device)
         self.wo = param((f, d), dt, device)
         if cfg.act in ("silu", "geglu"):
@@ -140,28 +141,40 @@ def apply_mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig):
 # --------------------------------------------------------------------------
 
 class Embedding(nn.Module):
-    """``tok`` (padded_vocab, d) and, untied, ``head`` (d, padded_vocab)."""
+    """``tok`` (padded_vocab, d), untied ``head`` (d, padded_vocab) and,
+    for learned positions, ``pos`` (max(encoder_seq, 32768) rows for an
+    encoder-decoder, 32768 otherwise, by d)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.pos_emb == "learned":
-            raise not_ported("learned position embeddings")
         dt = model_dtype(cfg)
         self.tok = param((cfg.padded_vocab, cfg.d_model), dt, device)
         if not cfg.tie_embeddings:
             self.head = param((cfg.d_model, cfg.padded_vocab), dt, device)
+        if cfg.pos_emb == "learned":
+            rows = (max(cfg.encoder_seq, 32_768) if cfg.is_encoder_decoder
+                    else 32_768)
+            self.pos = param((rows, cfg.d_model), dt, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         dense_init_(self.tok, generator, in_axis=1)
         if "head" in self._parameters:
             dense_init_(self.head, generator)
+        if "pos" in self._parameters:
+            dense_init_(self.pos, generator, in_axis=1)
 
 
-def embed_tokens(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig):
+def embed_tokens(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig,
+                 positions: Optional[torch.Tensor] = None):
+    """Token rows, Gemma's sqrt(d) scale, and with learned positions the
+    ``pos`` rows of ``positions`` clipped to the table."""
     x = params.tok[tokens]
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if cfg.pos_emb == "learned" and positions is not None:
+        rows = params.pos.shape[0]
+        x = x + params.pos[positions.long().clamp(0, rows - 1)]
     return x
 
 

@@ -1,57 +1,97 @@
-"""Model facade: init / forward / decode for the dense, SSM and hybrid families (port of ``repro.models.model``).
+"""Model facade: init / forward / decode for every family (port of ``repro.models.model``).
 
-``batch`` is ``{"tokens": (B, S) integer tensor}``.  Decode caches, built
-by ``init_decode_cache`` and updated in place by ``decode_step``
-(``pos == -1`` marks an empty attention slot):
+``batch`` dicts, as in the reference::
 
-    dense:  {"dense": {"k","v": (L, B, W, Hkv, hd), "pos": (L, B, W)}}
+    dense|moe|ssm|hybrid: {"tokens": (B, S) integer tensor}
+    audio (whisper):      {"frames": (B, encoder_seq, D), "tokens": (B, S)}
+    vlm (pixtral):        {"patches": (B, P, D), "tokens": (B, S - P)}
+
+Decode caches, built by ``init_decode_cache`` and updated in place by
+``decode_step`` (``pos == -1`` marks an empty attention slot):
+
+    dense/vlm/moe: {"dense": ..., "moe": ...} (the stacks present), each
+            {"k","v": (L, B, W, Hkv, hd), "pos": (L, B, W)} or, with
+            MLA, {"ckv": (L, B, W, kv_lora), "krope": (L, B, W, rope),
+            "pos"}
     ssm:    {"ssm": {"conv": (L, B, 3, di+2N), "ssm": (L, B, H, P, N)}}
     hybrid: the ssm cache plus {"attn": {"k","v","pos"}} stacked over
             the shared block's groups (G, B, W, ...)
+    audio:  {"self": {"k","v","pos"} over the decoder layers,
+             "cross": {"k","v": (L, B, encoder_seq, Hkv, hd)}}
 
-``params`` is the :class:`~repro_torch.models.transformer.LM` built by
-:func:`init` or by ``convert.params_from_reference``.  The MoE, audio
-and VLM families raise.
+``params`` is the :class:`~repro_torch.models.transformer.LM` (or, for
+audio, :class:`~repro_torch.models.encdec.EncDec`) built by :func:`init`
+or by ``convert.params_from_reference``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_tokens, lm_head
+from repro_torch.models.layers import embed_tokens, lm_head, model_dtype
+
+
+def module(cfg: ModelConfig, device=None) -> nn.Module:
+    """The family's parameter container, uninitialised."""
+    if cfg.family == "audio":
+        return encdec_mod.EncDec(cfg, device)
+    return tfm.LM(cfg, device)
 
 
 def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-         device: DeviceLike = None) -> tfm.LM:
+         device: DeviceLike = None) -> nn.Module:
     """Random weights drawn on ``device`` (CUDA unless asked otherwise).
 
     ``jax.random`` cannot be reproduced in torch, so the values differ
     from ``repro.models.model.init``; the scales are the reference's.
     Without a generator, one seeded with 0 on ``device`` is used.
     """
-    tfm.check_family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    if cfg.family == "audio":
+        return encdec_mod.init_encdec(cfg, generator, dev)
     return tfm.init_lm(cfg, generator, dev)
 
 
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
 @torch.no_grad()
-def forward(cfg: ModelConfig, params: tfm.LM, batch: Dict, *,
+def forward(cfg: ModelConfig, params: nn.Module, batch: Dict, *,
             return_cache: bool = False, window: Optional[int] = None):
-    """Returns (logits (B, S, padded_vocab), cache or None, aux_loss)."""
-    tfm.check_family(cfg)
+    """Returns (logits (B, S, padded_vocab), cache or None, aux_loss);
+    aux_loss is the MoE layers' load-balance loss (0.0 without
+    experts)."""
     tokens = batch["tokens"]
+    if cfg.family == "audio":
+        memory = encdec_mod.encode(params, batch["frames"], cfg)
+        h, cache = encdec_mod.decoder_forward(params, tokens, memory, cfg,
+                                              return_cache=return_cache)
+        if return_cache:
+            cache = {"self": cache,
+                     "cross": encdec_mod.build_cross_cache(params, memory,
+                                                           cfg)}
+        return lm_head(params.embed, h, cfg), cache, 0.0
+
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    x = embed_tokens(params.embed, tokens, cfg)
+    positions = _positions(B, S, tokens.device)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(model_dtype(cfg))
+        x = torch.cat([patches, embed_tokens(params.embed, tokens, cfg)],
+                      dim=1)
+        positions = _positions(B, x.shape[1], tokens.device)
+    else:
+        x = embed_tokens(params.embed, tokens, cfg, positions=positions)
     backbone = (tfm.ssm_backbone_forward if tfm.is_ssm(cfg)
                 else tfm.backbone_forward)
     h, cache, aux = backbone(params, x, cfg, positions, window=window,
@@ -60,12 +100,15 @@ def forward(cfg: ModelConfig, params: tfm.LM, batch: Dict, *,
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params: tfm.LM, tokens, cache, cur_pos,
+def decode_step(cfg: ModelConfig, params: nn.Module, tokens, cache, cur_pos,
                 *, window: Optional[int] = None):
     """tokens: (B, 1); cur_pos: (B,).  Returns (logits, cache), the cache
-    updated in place."""
-    tfm.check_family(cfg)
-    x = embed_tokens(params.embed, tokens, cfg)
+    updated in place (an audio model's ``cross`` cache is only read)."""
+    if cfg.family == "audio":
+        h, _ = encdec_mod.decoder_decode(params, tokens, cfg, cache["self"],
+                                         cache["cross"], cur_pos)
+        return lm_head(params.embed, h, cfg), cache
+    x = embed_tokens(params.embed, tokens, cfg, positions=cur_pos[:, None])
     backbone = (tfm.ssm_backbone_decode if tfm.is_ssm(cfg)
                 else tfm.backbone_decode)
     h, cache = backbone(params, x, cfg, cache, cur_pos, window=window)
@@ -76,11 +119,20 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       window: Optional[int] = None,
                       device: DeviceLike = None) -> Dict:
     """Empty stacked cache on ``device`` (CUDA unless asked otherwise)."""
-    tfm.check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "audio":
+        kv = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads,
+              cfg.head_dim)
+        dt = model_dtype(cfg)
+        return {"self": attn.init_cache(cfg, batch, max_seq, window,
+                                        layers=cfg.num_layers, device=dev),
+                "cross": {"k": torch.zeros(kv, dtype=dt, device=dev),
+                          "v": torch.zeros(kv, dtype=dt, device=dev)}}
     if not tfm.is_ssm(cfg):
-        return {"dense": attn.init_cache(cfg, batch, max_seq, window,
-                                         layers=cfg.num_layers, device=dev)}
+        n_dense, n_moe = tfm.layer_counts(cfg)
+        return {key: attn.init_cache(cfg, batch, max_seq, window, layers=n,
+                                     device=dev)
+                for key, n in (("dense", n_dense), ("moe", n_moe)) if n}
     cache = {"ssm": ssm_mod.init_ssm_cache(cfg, batch,
                                            layers=cfg.num_layers, device=dev)}
     if cfg.family == "hybrid":

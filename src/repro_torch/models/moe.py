@@ -1,0 +1,142 @@
+"""Mixture-of-Experts FFN: top-k router + capacity-bounded dispatch (port of ``repro.models.moe``).
+
+Prefill ranks each (token, expert) pair within its expert's group by
+one stable argsort of the flat expert ids, writes the kept pairs into
+an (E*C, D) buffer (C = ceil(T*K/E * capacity_factor); pairs past C are
+dropped, the reference's dump row), runs the expert FFNs as products
+batched over the experts, and gathers the rows back weighted by their
+gates.  Decode gathers each token's top-k expert weights instead (the
+reference's default; its ``MOE_DECODE_DISPATCH`` flag is off).  The
+expert products are plain large matrix products, which the reference
+also leaves outside any Pallas kernel, so they run as ``torch.bmm`` /
+``einsum`` here.
+
+``DROPPED`` counts the (token, expert) pairs the prefill dispatch has
+dropped at capacity since it was last set to 0.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (MLP, apply_mlp, dense_init_,
+                                       model_dtype, param)
+
+#: (token, expert) pairs dropped at capacity since the count was last 0
+DROPPED = 0
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) fp32, ``wi``/``wg`` (E, d, f), ``wo`` (E, f, d)
+    and, with shared experts, ``shared`` (an MLP of
+    ``num_shared_experts * moe_d_ff``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dt, d, f, E = (model_dtype(cfg), cfg.d_model, cfg.moe_d_ff,
+                       cfg.num_experts)
+        self.router = param((d, E), torch.float32, device)
+        self.wi = param((E, d, f), dt, device)
+        self.wg = param((E, d, f), dt, device)
+        self.wo = param((E, f, d), dt, device)
+        if cfg.num_shared_experts:
+            self.shared = MLP(cfg, device,
+                              d_ff=cfg.num_shared_experts * cfg.moe_d_ff)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's scales (``in_axis=1`` of each stack), drawn
+        expert by expert: one fp32 draw of a whole stack is a transient
+        as large as the stack in fp32."""
+        dense_init_(self.router, generator)
+        for w in (self.wi, self.wg, self.wo):
+            for e in range(w.shape[0]):
+                dense_init_(w[e], generator)
+        if "shared" in self._modules:
+            self.shared.reset_parameters(generator)
+
+
+def _act(h, cfg: ModelConfig):
+    return F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")
+
+
+def _route(params: MoE, xt, cfg: ModelConfig):
+    """fp32 router softmax, top-k, gates renormalised."""
+    probs = torch.softmax(xt.float() @ params.router, dim=-1)
+    gates, eidx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gates, eidx
+
+
+def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
+    """x: (B, S, D) -> (y, aux_loss); decode gathers the experts' weights
+    per token (no capacity, aux 0.0)."""
+    global DROPPED
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.moe_top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    probs, gates, eidx = _route(params, xt, cfg)
+    if decode:
+        y = _gather_experts(params, xt, gates, eidx, cfg)
+        if "shared" in params._modules:
+            y = y + apply_mlp(params.shared, xt, cfg)
+        return y.reshape(B, S, D), 0.0
+
+    # load-balance aux loss (Switch/DeepSeek style)
+    e_flat = eidx.reshape(-1)                                   # (T*K,)
+    counts = torch.bincount(e_flat, minlength=E)
+    f_e = counts.float() / (T * K)
+    aux = E * torch.sum(f_e * probs.mean(0)) * cfg.router_aux_coef
+
+    # capacity-bounded dispatch: rank within the expert's group
+    C = max(1, int(math.ceil(T * K / E * cfg.capacity_factor)))
+    order = torch.argsort(e_flat, stable=True)
+    group_start = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(e_flat)
+    pos[order] = (torch.arange(T * K, device=x.device)
+                  - group_start[e_flat[order]])
+    keep = pos < C
+    kept = keep.nonzero()[:, 0]
+    DROPPED += T * K - int(kept.numel())
+    dest = e_flat * C + pos
+    # kept pairs have distinct destinations: copy them, no accumulation
+    buf = x.new_zeros((E * C, D))
+    buf[dest[kept]] = xt[kept // K]
+    eo = _expert_products(params, buf.view(E, C, D), cfg)      # (E, C, D)
+
+    # combine: each kept pair's row weighted by its gate, summed over K
+    rows = x.new_zeros((T * K, D))
+    rows[kept] = eo.reshape(E * C, D)[dest[kept]]
+    rows = rows * gates.reshape(-1, 1).to(rows.dtype)
+    y = rows.view(T, K, D).sum(1)
+    if "shared" in params._modules:
+        y = y + apply_mlp(params.shared, xt, cfg)
+    return y.reshape(B, S, D), aux
+
+
+def _expert_products(params: MoE, eb, cfg: ModelConfig):
+    """eb: (E, C, D) dispatched rows -> (E, C, D), batched over experts."""
+    h = torch.bmm(eb, params.wi)
+    if cfg.act in ("silu", "geglu"):
+        h = _act(torch.bmm(eb, params.wg), cfg) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, params.wo)
+
+
+def _gather_experts(params: MoE, xt, gates, eidx, cfg: ModelConfig):
+    """Per-token expert weight gather (decode).  xt: (T, D); the gathered
+    stacks are (T, K, d, f) per weight, as in the reference."""
+    T, K = eidx.shape
+    xk = xt[:, None, None, :].expand(T, K, 1, xt.shape[1])
+    h = (xk @ params.wi[eidx])[:, :, 0]                         # (T, K, f)
+    if cfg.act in ("silu", "geglu"):
+        h = _act((xk @ params.wg[eidx])[:, :, 0], cfg) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    out = (h[:, :, None, :] @ params.wo[eidx])[:, :, 0]         # (T, K, d)
+    return torch.einsum("tkd,tk->td", out, gates.to(out.dtype))

@@ -1,35 +1,42 @@
-"""Decoder-only LM backbones: dense, SSM and hybrid (port of ``repro.models.transformer``).
+"""Decoder-only LM backbones: dense, MoE, SSM and hybrid (port of ``repro.models.transformer``).
 
 The reference stacks each layer's leaves along a leading axis and runs
 the stack under ``lax.scan``; here the layers are a ``ModuleList`` run
 by a Python loop, and the per-layer caches are stacked (forward) or
-indexed (decode) along the same leading axis.  The hybrid (Zamba2)
-applies one weight-shared attention block after every ``attn_every``
-SSM layers.  The MoE stack is not ported yet and raises.
+indexed (decode) along the same leading axis, leaf by leaf under each
+layer cache's own names (``k``/``v``/``pos``, MLA's ``ckv``/``krope``/
+``pos``).  A MoE model runs its ``num_dense_layers`` dense blocks, then
+its MoE blocks.  The hybrid (Zamba2) applies one weight-shared attention
+block after every ``attn_every`` SSM layers.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (MLP, Embedding, Norm, apply_mlp,
-                                       apply_norm, not_ported)
+                                       apply_norm)
 
 
 class Block(nn.Module):
-    """``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """``norm1``, ``attn``, ``norm2`` and ``mlp``, or ``moe`` in a MoE
+    layer."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, moe_layer: bool = False):
         super().__init__()
         self.norm1 = Norm(cfg, device)
         self.attn = attn.Attention(cfg, device)
         self.norm2 = Norm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if moe_layer:
+            self.moe = moe_mod.MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
 
 class SSMBlock(nn.Module):
@@ -41,31 +48,35 @@ class SSMBlock(nn.Module):
         self.mixer = ssm_mod.SSM(cfg, device)
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise for every family but the ported ones: dense (without
-    experts), ssm and hybrid."""
-    dense = cfg.family == "dense" and not cfg.num_experts
-    if not (dense or cfg.family in ("ssm", "hybrid")):
-        raise not_ported(f"model family {cfg.family!r}")
-
-
 def is_ssm(cfg: ModelConfig) -> bool:
     return cfg.family in ("ssm", "hybrid")
 
 
+def layer_counts(cfg: ModelConfig):
+    """(dense, moe) block counts: a MoE model's first
+    ``num_dense_layers`` blocks are dense."""
+    n_dense = cfg.num_dense_layers if cfg.num_experts else cfg.num_layers
+    return n_dense, cfg.num_layers - n_dense
+
+
 class LM(nn.Module):
-    """``embed``, ``final_norm`` and either the ``dense_layers`` stack
-    or the SSM ``layers`` stack, plus, with ``attn_every``, the hybrid's
+    """``embed``, ``final_norm`` and either the ``dense_layers`` and
+    ``moe_layers`` stacks (each present when non-empty) or the SSM
+    ``layers`` stack, plus, with ``attn_every``, the hybrid's
     ``shared_attn`` block."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_family(cfg)
         self.embed = Embedding(cfg, device)
         self.final_norm = Norm(cfg, device)
         if not is_ssm(cfg):
-            self.dense_layers = nn.ModuleList(
-                Block(cfg, device) for _ in range(cfg.num_layers))
+            n_dense, n_moe = layer_counts(cfg)
+            if n_dense:
+                self.dense_layers = nn.ModuleList(
+                    Block(cfg, device) for _ in range(n_dense))
+            if n_moe:
+                self.moe_layers = nn.ModuleList(
+                    Block(cfg, device, moe_layer=True) for _ in range(n_moe))
             return
         self.layers = nn.ModuleList(
             SSMBlock(cfg, device) for _ in range(cfg.num_layers))
@@ -73,11 +84,19 @@ class LM(nn.Module):
             self.shared_attn = Block(cfg, device)
 
 
+def stacks(params: LM):
+    """(cache key, blocks) of the attention stacks present, in order."""
+    return [(key, params._modules[name]) for key, name in
+            (("dense", "dense_layers"), ("moe", "moe_layers"))
+            if name in params._modules]
+
+
 def _reset_block(blk: Block, generator: torch.Generator) -> None:
     blk.norm1.reset_parameters()
     blk.attn.reset_parameters(generator)
     blk.norm2.reset_parameters()
-    blk.mlp.reset_parameters(generator)
+    ffn = blk.moe if "moe" in blk._modules else blk.mlp
+    ffn.reset_parameters(generator)
 
 
 @torch.no_grad()
@@ -88,8 +107,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     lm.embed.reset_parameters(generator)
     lm.final_norm.reset_parameters()
     if not is_ssm(cfg):
-        for blk in lm.dense_layers:
-            _reset_block(blk, generator)
+        for _, blocks in stacks(lm):
+            for blk in blocks:
+                _reset_block(blk, generator)
         return lm
     for blk in lm.layers:
         blk.norm.reset_parameters()
@@ -99,16 +119,23 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     return lm
 
 
+def _ffn(params: Block, h, cfg: ModelConfig, decode: bool):
+    """(out, aux): the MoE layer's aux loss, 0.0 for a dense one."""
+    if "moe" in params._modules:
+        return moe_mod.apply_moe(params.moe, h, cfg, decode=decode)
+    return apply_mlp(params.mlp, h, cfg), 0.0
+
+
 def apply_block(params: Block, x, cfg: ModelConfig, positions, *,
                 window: Optional[int] = None, return_cache: bool = False):
-    """Full-sequence block.  Returns (x, cache)."""
+    """Full-sequence block.  Returns (x, cache, aux)."""
     h = apply_norm(params.norm1, x, cfg)
     a, cache = attn.attention_forward(params.attn, h, cfg, positions,
                                       return_cache=return_cache,
                                       window=window)
     x = x + a
-    h = apply_norm(params.norm2, x, cfg)
-    return x + apply_mlp(params.mlp, h, cfg), cache
+    f, aux = _ffn(params, apply_norm(params.norm2, x, cfg), cfg, False)
+    return x + f, cache, aux
 
 
 def apply_block_decode(params: Block, x, cfg: ModelConfig, cache, cur_pos,
@@ -117,34 +144,52 @@ def apply_block_decode(params: Block, x, cfg: ModelConfig, cache, cur_pos,
     a, cache = attn.attention_decode(params.attn, h, cfg, cache, cur_pos,
                                      window=window)
     x = x + a
-    h = apply_norm(params.norm2, x, cfg)
-    return x + apply_mlp(params.mlp, h, cfg), cache
+    f, _ = _ffn(params, apply_norm(params.norm2, x, cfg), cfg, True)
+    return x + f, cache
+
+
+def stack_caches(caches: List[Dict]) -> Dict:
+    """Per-layer caches stacked leaf by leaf along a leading layer axis."""
+    return {name: torch.stack([c[name] for c in caches])
+            for name in caches[0]}
+
+
+def layer_cache(stack: Dict, i: int) -> Dict:
+    """Layer i's views of a stacked cache (written through in place)."""
+    return {name: leaf[i] for name, leaf in stack.items()}
 
 
 def backbone_forward(params: LM, x, cfg: ModelConfig, positions, *,
                      window: Optional[int] = None,
                      return_cache: bool = False):
-    """x: (B, S, D) embeddings -> (hidden, cache or None, aux_loss)."""
-    caches = []
-    for blk in params.dense_layers:
-        x, c = apply_block(blk, x, cfg, positions, window=window,
-                           return_cache=return_cache)
-        caches.append(c)
+    """x: (B, S, D) embeddings -> (hidden, cache or None, aux_loss).
+
+    The cache is ``{"dense": ..., "moe": ...}`` (the stacks present);
+    aux_loss sums the MoE layers' losses in fp32 (0.0 without experts).
+    """
+    caches: Dict[str, Dict] = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if cfg.num_experts else 0.0
+    for key, blocks in stacks(params):
+        layer = []
+        for blk in blocks:
+            x, c, aux = apply_block(blk, x, cfg, positions, window=window,
+                                    return_cache=return_cache)
+            aux_total = aux_total + aux
+            layer.append(c)
+        if return_cache:
+            caches[key] = stack_caches(layer)
     x = apply_norm(params.final_norm, x, cfg)
-    if not return_cache:
-        return x, None, 0.0
-    stacked = {name: torch.stack([c[name] for c in caches])
-               for name in ("k", "v", "pos")}
-    return x, {"dense": stacked}, 0.0
+    return x, (caches if return_cache else None), aux_total
 
 
 def backbone_decode(params: LM, x, cfg: ModelConfig, cache: Dict, cur_pos,
                     *, window: Optional[int] = None):
-    """One token per sequence; updates ``cache["dense"]`` in place."""
-    stack = cache["dense"]
-    for i, blk in enumerate(params.dense_layers):
-        layer = {name: stack[name][i] for name in ("k", "v", "pos")}
-        x, _ = apply_block_decode(blk, x, cfg, layer, cur_pos, window=window)
+    """One token per sequence; updates each stack's cache in place."""
+    for key, blocks in stacks(params):
+        for i, blk in enumerate(blocks):
+            x, _ = apply_block_decode(blk, x, cfg, layer_cache(cache[key], i),
+                                      cur_pos, window=window)
     x = apply_norm(params.final_norm, x, cfg)
     return x, cache
 
@@ -189,17 +234,15 @@ def ssm_backbone_forward(params: LM, x, cfg: ModelConfig, positions, *,
             x, c = apply_ssm_block(blk, x, cfg, return_cache=return_cache)
             ssm_caches.append(c)
         if cfg.attn_every:
-            x, c = apply_block(params.shared_attn, x, cfg, positions,
-                               window=window, return_cache=return_cache)
+            x, c, _ = apply_block(params.shared_attn, x, cfg, positions,
+                                  window=window, return_cache=return_cache)
             attn_caches.append(c)
     x = apply_norm(params.final_norm, x, cfg)
     if not return_cache:
         return x, None, 0.0
-    cache = {"ssm": {name: torch.stack([c[name] for c in ssm_caches])
-                     for name in ("conv", "ssm")}}
+    cache = {"ssm": stack_caches(ssm_caches)}
     if attn_caches:
-        cache["attn"] = {name: torch.stack([c[name] for c in attn_caches])
-                         for name in ("k", "v", "pos")}
+        cache["attn"] = stack_caches(attn_caches)
     return x, cache, 0.0
 
 
@@ -211,12 +254,11 @@ def ssm_backbone_decode(params: LM, x, cfg: ModelConfig, cache: Dict,
     ssm = cache["ssm"]
     for g, (lo, hi) in enumerate(_hybrid_groups(cfg)):
         for i in range(lo, hi):
-            layer = {name: ssm[name][i] for name in ("conv", "ssm")}
-            x, _ = apply_ssm_block(params.layers[i], x, cfg, cache=layer)
+            x, _ = apply_ssm_block(params.layers[i], x, cfg,
+                                   cache=layer_cache(ssm, i))
         if cfg.attn_every:
-            layer = {name: cache["attn"][name][g]
-                     for name in ("k", "v", "pos")}
-            x, _ = apply_block_decode(params.shared_attn, x, cfg, layer,
+            x, _ = apply_block_decode(params.shared_attn, x, cfg,
+                                      layer_cache(cache["attn"], g),
                                       cur_pos, window=window)
     x = apply_norm(params.final_norm, x, cfg)
     return x, cache

@@ -9,7 +9,11 @@ a request stops after ``max_new_tokens`` or at ``pos >= max_seq - 1``,
 and a prefill overwrites only the first S positions of its slot's
 attention cache (stale positions beyond S stay and are masked by
 ``kp <= cur``) but the whole of its SSM state and conv window, which
-idle decode steps keep advancing.  The engine
+idle decode steps keep advancing, and of its cross-attention cache,
+which decode only reads.  A VLM prompt follows min(num_patches, 4)
+zero patch embeddings, and its decode positions start after them; an
+audio prompt is decoded against encoder_seq zero frames (the stubbed
+front ends of the reference's engine).  The engine
 runs on CUDA unless the caller passes ``device="cpu"``; the cache is
 updated in place.
 """
@@ -27,6 +31,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.api.registry import resolve
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_mod
+from repro_torch.models.layers import model_dtype
 
 
 @dataclasses.dataclass
@@ -117,17 +122,19 @@ class ServingEngine:
 
     def _prefill_into(self, slot: int, req: ServeRequest) -> None:
         S = len(req.prompt)
-        if S > self.max_seq:
-            raise ValueError(f"request {req.rid}: prompt of {S} tokens does "
-                             f"not fit max_seq={self.max_seq}")
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
-        logits, pcache, _ = self._prefill(self.params, {"tokens": tokens})
+        batch, offset = prefill_batch(self.cfg, tokens)
+        if S + offset > self.max_seq:
+            raise ValueError(f"request {req.rid}: prompt of {S} tokens "
+                             f"(after {offset} patches) does not fit "
+                             f"max_seq={self.max_seq}")
+        logits, pcache, _ = self._prefill(self.params, batch)
         next_tok = int(torch.argmax(logits[0, -1]))
         _write_slot(self.cache, pcache, slot)
         st = self.slots[slot]
         st.req = req
-        st.pos = S
+        st.pos = S + offset
         st.remaining = req.max_new_tokens - 1
         req.tokens.append(next_tok)
         req.ttft_step = self.step_count
@@ -172,14 +179,35 @@ class ServingEngine:
             self.step()
 
 
+def prefill_batch(cfg: ModelConfig, tokens: torch.Tensor):
+    """The engine's model inputs for prompts ``tokens`` (B, S): with them
+    an audio model's encoder_seq zero frames, a VLM's min(num_patches, 4)
+    zero patch embeddings ahead of the prompt (the stubbed front ends).
+    Returns (batch, offset): the prompt's first position is ``offset``."""
+    B, dev, dt = tokens.shape[0], tokens.device, model_dtype(cfg)
+    batch = {"tokens": tokens}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                                      dtype=dt, device=dev)
+    if cfg.family != "vlm":
+        return batch, 0
+    offset = min(cfg.num_patches, 4)
+    batch["patches"] = torch.zeros((B, offset, cfg.d_model), dtype=dt,
+                                   device=dev)
+    return batch, offset
+
+
 @torch.no_grad()
 def _write_slot(cache: Dict, prefill_cache: Dict, slot: int) -> Dict:
     """Write a single-request prefill cache into decode-cache slot `slot`.
 
     Decode leaves are stacked (L, B, W, ...); prefill leaves are
     (L, 1, S, ...): write at [:, slot, :S] in place, leaving slots
-    beyond S as they were.  SSM states (L, 1, H, P, N) and conv windows
-    (L, 1, 3, C) span their whole axis 2, so they are replaced whole.
+    beyond S as they were, whatever the leaf's name (K/V, MLA's latent
+    and rope keys, positions).  SSM states (L, 1, H, P, N), conv windows
+    (L, 1, 3, C) and an encoder-decoder's cross cache
+    (L, 1, encoder_seq, Hkv, hd) span their whole axis 2, so they are
+    replaced whole.
     """
     for family, leaves in prefill_cache.items():
         for name, src in leaves.items():

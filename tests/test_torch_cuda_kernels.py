@@ -106,6 +106,39 @@ def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd, window,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,T,causal", [
+    (333, 333, True),       # MLA prefill, ragged S = T
+    (129, 129, True),       # one row past a 128-row q tile
+    (70, 200, False),       # bidirectional / cross: S != T
+    (1, 64, False),         # one query row, one 64-key tile
+])
+def test_flash_kernel_hd192_mla_layout(dev, dtype, S, T, causal):
+    """Head dim 192 (MLA's nope 128 + rope 64) as the MLA prefill hands
+    it over: q and k concatenated, V zero-padded from 128 to 192 in a
+    real buffer; the first 128 output columns against the plain version
+    on the unpadded V, the last 64 zero."""
+    B, H, vd, hd = 2, 16, 128, 192
+    q = randn(dev, (B, S, H, hd), dtype, 11).transpose(1, 2)
+    k = randn(dev, (B, T, H, hd), dtype, 12).transpose(1, 2)
+    v = torch.zeros((B, T, H, hd), dtype=getattr(torch, dtype), device=dev)
+    v[..., :vd] = randn(dev, (B, T, H, vd), dtype, 13)
+    v = v.transpose(1, 2)
+    qpos = (torch.arange(S, device=dev, dtype=torch.int32)
+            + (T - S)).repeat(B, 1)
+    kpos = torch.arange(T, device=dev, dtype=torch.int32).expand(B, T)
+    n = tfa.LAUNCHES
+    got = tfa.flash_attention(q, k, v, qpos, kpos, scale=hd ** -0.5,
+                              causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == n + 1
+    want = tref.flash_attention_ref(q, k, v[..., :vd], qpos, kpos,
+                                    scale=hd ** -0.5, causal=causal)
+    close(got[..., :vd], want, dtype)
+    assert not got[..., vd:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_fully_masked_rows(dev, dtype):
     B, H, Hkv, S, T, hd = 2, 8, 2, 90, 90, 128
     q = randn(dev, (B, H, S, hd), dtype, 4)
@@ -297,6 +330,39 @@ def test_engine_on_card_matches_cpu(dev):
         assert (launched == (0, 0)) == (where == "cpu")
     assert out["cpu"] == out["cuda"]
     assert np.all([len(t) == 6 for t, _, _ in out["cuda"]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b",
+                                  "whisper-tiny"])
+def test_new_family_engine_on_card_matches_cpu(dev, arch):
+    """The smoke MoE (with MLA) and audio models in fp32, at a capacity
+    that drops nothing, serve the same tokens on the card (K2 in every
+    prefill; K1 in decode, but for MLA's plain latent attention) as on
+    the CPU (the plain versions).  The reduced DeepSeek-V3's MLA head dim
+    is 24, which K2 does not take, so it is served at the full model's
+    MLA widths (nope 128, rope 64, v 128: K2 at hd 192)."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
+                              dtype="float32", capacity_factor=8.0)
+    if cfg.use_mla:
+        cfg = dataclasses.replace(cfg, mla=get_arch(arch).mla)
+    lm = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for where in ("cpu", "cuda"):
+        reqs = make_requests(cfg, 5, max_new=6, prompt_len=(2, 70))
+        eng = ServingEngine(cfg, lm.to(where), max_batch=3, max_seq=96,
+                            scheduler="dpa", device=where)
+        for r in reqs:
+            eng.submit(r)
+        n = (tfa.LAUNCHES, tdec.LAUNCHES)
+        eng.run()
+        launched = (tfa.LAUNCHES - n[0], tdec.LAUNCHES - n[1])
+        out[where] = [(r.tokens, r.ttft_step, r.done_step) for r in reqs]
+        if where == "cpu":
+            assert launched == (0, 0)
+        else:
+            assert launched[0] > 0 and (launched[1] > 0) != cfg.use_mla
+    assert out["cpu"] == out["cuda"]
 
 
 # ------------------------------------------------------------ ARMA fit

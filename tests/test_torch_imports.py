@@ -109,3 +109,49 @@ def test_vector_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         run_experiment(exp, jobs=1)
     assert run_experiment(exp, jobs=1, device="cpu").results[0].engine \
         == "vector"
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b",
+                                  "pixtral-12b", "whisper-tiny"])
+def test_new_family_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda, arch):
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = reduce_for_smoke(get_arch(arch))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_decode_cache(cfg, 1, 8)
+    lm = model.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(cfg, lm, max_batch=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke", "--arch", arch])
+
+
+def test_serve_refuses_weights_larger_than_the_free_memory():
+    """``launch/serve.py`` compares the config's weight bytes with the
+    card's free memory before allocating anything: full-size DeepSeek-V3
+    (671 B params, 1.34 TB in bf16) on an 80 GB card fails with an error
+    naming both, and no weight is drawn; Pixtral-12B (24.5 GB) passes
+    the check.  ``mem_get_info`` is mocked, so this runs on the CPU."""
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    free = (79_000_000_000, 85_000_000_000)
+    cuda = torch.device("cuda", 0)
+    with mock.patch.object(torch.cuda, "mem_get_info", return_value=free):
+        with pytest.raises(RuntimeError, match=r"1342\.\d GB .* 79\.0 GB"):
+            serve.check_fits(get_arch("deepseek-v3-671b"), cuda)
+        serve.check_fits(get_arch("pixtral-12b"), cuda)
+        with mock.patch.object(serve, "resolve_device", return_value=cuda), \
+                mock.patch.object(serve.model_mod, "init") as init:
+            with pytest.raises(RuntimeError, match="GB free"):
+                serve.main(["--arch", "deepseek-v3-671b"])
+        init.assert_not_called()
+    serve.check_fits(get_arch("deepseek-v3-671b"), torch.device("cpu"))

@@ -1,4 +1,4 @@
-"""repro_torch dense model vs the JAX reference on the same weights.
+"""repro_torch's models vs the JAX reference on the same weights.
 
 The reference's parameter tree (``unbox(repro.models.model.init)``) is
 carried into the port with ``params_from_reference``; ``forward`` and
@@ -9,9 +9,12 @@ backend fuses elementwise chains in fp32, eager torch rounds after each
 op); on these inputs the logits differ by one bf16 ulp of the largest
 logits (0.031 for StarCoder2's |logits| <= 4.3, 0.0625 for Gemma's
 <= 13.3), so bf16 is held to atol = rtol = 6e-2, and greedy tokens must
-agree wherever the reference's top-2 margin exceeds that.
+agree wherever the reference's top-2 margin exceeds that.  The MoE
+families in bf16 also leave out the tokens whose router choice is a
+near tie (``clear_positions``), and count them.
 """
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +26,15 @@ from repro.configs import get_arch as jget_arch
 from repro.configs import reduce_for_smoke as jreduce
 from repro.dist.sharding import unbox
 from repro.models import model as jmodel
+from repro_torch.configs import ARCHS as ALL_ARCHS
 from repro_torch.configs import get_arch, reduce_for_smoke
-from repro_torch.models import model
-from repro_torch.models.convert import params_from_reference
+from repro_torch.models import model, moe
+from repro_torch.models.convert import STACKED, _flatten, params_from_reference
 from repro_torch.serving.engine import _write_slot
 
 ARCHS = ["starcoder2-7b", "gemma-7b"]
+NEW_ARCHS = ["llama4-scout-17b-a16e", "deepseek-v3-671b", "pixtral-12b",
+             "whisper-tiny"]
 TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 
 
@@ -220,14 +226,251 @@ def test_windowed_decode_matches_windowed_forward(built):
     assert float((plain[:, -1] - full[:, -1]).abs().max()) > 1e-6
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-tiny",
-                                  "pixtral-12b", "llama4-scout-17b-a16e"])
-def test_unported_families_raise(arch):
-    cfg = reduce_for_smoke(get_arch(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_decode_cache(cfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("arch", sorted(ALL_ARCHS))
+def test_every_arch_builds_forwards_and_decodes(arch):
+    """Every architecture of ``configs.ARCHS`` (its reduced variant, fp32,
+    on the CPU): ``init``, a forward with its cache, the cache written
+    into a decode slot and two decode steps, all finite and of the
+    expected shapes (no family raises any more)."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
+                              dtype="float32")
+    lm = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: to_torch(v) for k, v in batch_for(cfg, 1, 9, 3).items()}
+    S = 9 + n_patches(batch)
+    logits, pre, aux = model.forward(cfg, lm, batch, return_cache=True)
+    assert logits.shape == (1, S, cfg.padded_vocab)
+    assert torch.isfinite(logits).all()
+    assert (aux != 0) == bool(cfg.num_experts)
+    cache = model.init_decode_cache(cfg, 2, 16, device="cpu")
+    _write_slot(cache, pre, 1)
+    for t in range(2):
+        cur = torch.tensor([t, S + t], dtype=torch.int32)
+        toks = torch.tensor([[1], [2 + t]])
+        lg, cache = model.decode_step(cfg, lm, toks, cache, cur)
+        assert lg.shape == (2, 1, cfg.padded_vocab)
+        assert torch.isfinite(lg).all()
+
+
+# --------------------------------------------------------------------------
+# MoE (Llama-4 Scout, DeepSeek-V3 with MLA), VLM (Pixtral), audio (Whisper)
+# --------------------------------------------------------------------------
+
+def n_patches(batch):
+    return batch["patches"].shape[1] if "patches" in batch else 0
+
+
+def batch_for(cfg, B, S, seed):
+    """numpy inputs of the family: S tokens, and the reduced Whisper's
+    encoder_seq frames or 3 Pixtral patch embeddings (0.02 * normal)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = 0.02 * rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = 0.02 * rng.standard_normal(
+            (B, 3, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def jbatch(batch, dtype):
+    return {k: jnp.asarray(v).astype(jnp.dtype(dtype))
+            if v.dtype == np.float32 else jnp.asarray(v)
+            for k, v in batch.items()}
+
+
+def tbatch(batch, dtype):
+    return {k: torch.from_numpy(np.array(jnp.asarray(v).astype(
+        jnp.dtype(dtype)).astype(jnp.float32))).to(getattr(torch, dtype))
+            if v.dtype == np.float32 else torch.from_numpy(v)
+            for k, v in batch.items()}
+
+
+def reference_routing(jcfg, fn):
+    """Run ``fn`` (a reference model call) eagerly and return its result
+    and the router probabilities of every MoE layer call, in order (the
+    input of each ``jax.lax.top_k``)."""
+    probs = []
+    top_k = jax.lax.top_k
+
+    def recording(x, k):
+        probs.append(np.asarray(x))
+        return top_k(x, k)
+
+    with jax.disable_jit(), mock.patch.object(jax.lax, "top_k", recording):
+        out = fn()
+    return out, probs
+
+
+def clear_positions(probs, k, B, S):
+    """(B, S) positions held in bf16: a token whose k-th and (k+1)-th
+    router probabilities lie within one bf16 ulp (2^-7) of the k-th may
+    take the other expert in either framework, so it is left out, and
+    with it every later position of its sequence when the near tie is in
+    a layer before the last (attention carries it forward)."""
+    clear = np.ones((B, S), bool)
+    for i, p in enumerate(probs):
+        q = np.sort(p.reshape(B, S, -1), axis=-1)[..., ::-1]
+        tie = (q[..., k - 1] - q[..., k]) <= 2.0 ** -7 * q[..., k - 1]
+        if i < len(probs) - 1:
+            tie = np.maximum.accumulate(tie, axis=1)
+        clear &= ~tie
+    return clear
+
+
+def close_where(got, want, dtype, held):
+    """close() on the positions ``held`` (B, S) of (B, S, ...) leaves."""
+    np.testing.assert_allclose(f32(got)[held], f32(want)[held],
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def close_cache_at(got, want, dtype, held):
+    """Every cache leaf against the reference's; (L, B, S, ...) leaves at
+    the held positions, the encoder-decoder's cross cache whole."""
+    for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+        keys = [k.key for k in path]
+        t = got
+        for k in keys:
+            t = t[k]
+        assert tuple(t.shape) == leaf.shape, keys
+        if keys[-1] == "pos":
+            np.testing.assert_array_equal(t.numpy(), np.asarray(leaf))
+        elif keys[0] == "cross":
+            close(t, leaf, dtype)
+        else:
+            for layer in range(leaf.shape[0]):
+                close_where(t[layer], leaf[layer], dtype, held)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_new_family_params_carry_over_exactly(built, arch, dtype):
+    """Every reference leaf, layer by layer for the stacked ones, equals
+    the port's parameter (MoE stacks, MLA leaves, the encoder-decoder's
+    stacks and its unstacked ``enc_pos``/``enc_norm``, ``embed.pos``)."""
+    _, cfg, tree, lm = built(arch, dtype)
+    sd = lm.state_dict()
+    n = 0
+    for name, leaf in _flatten(tree).items():
+        stack = next((s for s in STACKED if name.startswith(s)), None)
+        if stack is None:
+            np.testing.assert_array_equal(f32(sd[name]), f32(leaf))
+            n += 1
+            continue
+        rest = name[len(stack):]
+        for i in range(np.asarray(leaf).shape[0]):
+            np.testing.assert_array_equal(f32(sd[f"{stack}{i}.{rest}"]),
+                                          f32(leaf[i]))
+            n += 1
+    assert n == len(sd)
+    assert sd["embed.tok"].dtype == getattr(torch, dtype)
+    assert sd["final_norm.scale"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_family_init_has_reference_layout(built, arch):
+    _, cfg, _, ref_lm = built(arch, "bfloat16")
+    lm = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want = {k: (tuple(v.shape), v.dtype)
+            for k, v in ref_lm.state_dict().items()}
+    got = {k: (tuple(v.shape), v.dtype) for k, v in lm.state_dict().items()}
+    assert got == want
+    tok = lm.embed.tok.float()
+    assert abs(tok.std().item() * cfg.d_model ** 0.5 - 1.0) < 0.05
+    if cfg.family == "audio":
+        assert abs(lm.enc_pos.float().std().item() / 0.02 - 1.0) < 0.05
+        assert lm.embed.pos.shape == (32_768, cfg.d_model)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_new_family_forward_matches_reference(built, arch, dtype):
+    """Logits, aux loss and every cache leaf against the reference, at the
+    config's capacity factor in fp32 (the reduced MoE configs drop pairs
+    here) and, in bf16, at capacity 8 with near ties left out
+    (``clear_positions``)."""
+    jcfg, cfg, tree, lm = built(arch, dtype)
+    if dtype == "bfloat16" and cfg.num_experts:
+        jcfg = dataclasses.replace(jcfg, capacity_factor=8.0)
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    batch = batch_for(cfg, 2, 12, 1)
+    (want, jcache, jaux), probs = reference_routing(
+        jcfg, lambda: jmodel.forward(jcfg, tree, jbatch(batch, dtype),
+                                     return_cache=True))
+    moe.DROPPED = 0
+    got, cache, aux = model.forward(cfg, lm, tbatch(batch, dtype),
+                                    return_cache=True)
+    S = 12 + (3 if cfg.family == "vlm" else 0)
+    assert got.shape == (2, S, cfg.padded_vocab)
+    assert torch.isfinite(got.float()).all()
+    held = np.ones((2, S), bool)
+    if dtype == "bfloat16" and cfg.num_experts:
+        held = clear_positions(probs, cfg.moe_top_k, 2, S)
+        assert held.sum() >= S, held.sum()
+    close_where(got, want, dtype, held)
+    assert abs(float(aux) - float(jaux)) < 1e-6
+    if dtype == "float32" and cfg.num_experts:
+        assert moe.DROPPED > 0
+    assert set(cache) == set(jcache)
+    close_cache_at(cache, jcache, dtype, held)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_new_family_decode_step_matches_reference(built, arch, dtype):
+    """The reference's prefill cache merged into its decode cache, carried
+    over exactly; one decode step for two sequences at different
+    positions: logits and the updated caches (MLA's latent and rope keys,
+    the self and the unchanged cross cache)."""
+    jcfg, cfg, tree, lm = built(arch, dtype)
+    B, S, max_seq = 2, 11, 32
+    batch = batch_for(cfg, B, S + 1, 2)
+    pre_batch = dict(batch, tokens=batch["tokens"][:, :S])
+    _, jpre, _ = jmodel.forward(jcfg, tree, jbatch(pre_batch, dtype),
+                                return_cache=True)
+    jcache = jmodel.merge_prefill_cache(
+        jmodel.init_decode_cache(jcfg, B, max_seq), jpre)
+    P = 3 if cfg.family == "vlm" else 0
+    cur = np.asarray([S + P, S + P - 1], np.int32)
+    nxt = batch["tokens"][np.arange(B), cur - P][:, None]
+    (want, jnew), probs = reference_routing(
+        jcfg, lambda: jmodel.decode_step(jcfg, tree, jnp.asarray(nxt),
+                                         jcache, jnp.asarray(cur)))
+    cache = jax.tree.map(to_torch, jcache)
+    got, new = model.decode_step(cfg, lm, torch.from_numpy(nxt), cache,
+                                 torch.from_numpy(cur))
+    assert new is cache
+    assert got.shape == (B, 1, cfg.padded_vocab)
+    held = np.ones((B, 1), bool)
+    if dtype == "bfloat16" and cfg.num_experts:
+        held = clear_positions(probs, cfg.moe_top_k, B, 1)
+        assert held.sum() >= 1
+    close_where(got, want, dtype, held)
+    close_cache_at(new, jnew, dtype, np.ones((B, max_seq), bool))
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_family_decode_matches_full_forward(built, arch):
+    """The port alone, fp32, at ``capacity_factor=8.0`` (nothing dropped,
+    as the reference's smoke test runs it): prefill S-1 tokens, write
+    each sequence into its slot, decode the last token, against the full
+    forward (< 1e-3)."""
+    _, cfg, _, lm = built(arch, "float32")
+    cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    S = 12
+    batch = {k: to_torch(v) for k, v in batch_for(cfg, 2, S, 7).items()}
+    full, _, _ = model.forward(cfg, lm, batch)
+    pre_batch = dict(batch, tokens=batch["tokens"][:, :S - 1])
+    _, pre, _ = model.forward(cfg, lm, pre_batch, return_cache=True)
+    P = n_patches(batch)
+    cache = model.init_decode_cache(cfg, 2, S + P + 4, device="cpu")
+    for b in range(2):
+        _write_slot(cache, jax.tree.map(lambda v: v[:, b:b + 1], pre), b)
+    cur = torch.full((2,), S - 1 + P, dtype=torch.int32)
+    lg, _ = model.decode_step(cfg, lm, batch["tokens"][:, S - 1:], cache,
+                              cur)
+    assert float((lg[:, 0] - full[:, -1]).abs().max()) < 1e-3
 
 
 # --------------------------------------------------------------------------

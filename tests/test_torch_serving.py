@@ -124,3 +124,21 @@ def test_ssm_engine_matches_reference(arch, overrides):
                scheduler="dpa")
     assert (tfa.LAUNCHES, tdec.LAUNCHES, tssd.LAUNCHES) == before
     assert all(len(r.tokens) == 5 for r in reqs)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b",
+                                  "pixtral-12b", "whisper-tiny"])
+def test_new_family_engine_matches_reference(arch):
+    """The MoE (with MLA), VLM and audio families behind DPA: 6 requests
+    through 3 slots (slots reused; the VLM's prompts follow 4 zero
+    patches, the audio model's decode against zero frames through a
+    cross cache that idle decode steps must leave alone), prompts of 2
+    to 40 tokens; the CPU path never launches a kernel."""
+    cfg = reduce_for_smoke(get_arch(arch))
+    reqs = make_requests(cfg, 6, max_new=5, prompt_len=(2, 41), seed=4)
+    before = (tfa.LAUNCHES, tdec.LAUNCHES)
+    eng = serve_both(arch, reqs, max_batch=3, max_seq=64, scheduler="dpa")
+    assert (tfa.LAUNCHES, tdec.LAUNCHES) == before
+    assert all(len(r.tokens) == 5 for r in reqs)
+    if cfg.family == "audio":
+        assert bool(eng.cache["cross"]["k"].abs().sum() > 0)
