@@ -23,11 +23,18 @@ which must pass for the run to exit 0:
    rows, a q tile of padded and live rows, S and T off the 128-row
    tiles, S < 64 and one query row; the SSD state scan (K3) in fp32 at
    Zamba2-7B's and Mamba2-370M's prefill shapes, one chunk, 33 chunks
-   from a random state, decays all 0 and all 1, and strided states.
-   Then each is timed at the served shapes beside its bound, its plain
-   version and, for attention, ``scaled_dot_product_attention`` (timed
-   only; the port never calls it; no single PyTorch call computes K3's
-   scan);
+   from a random state, decays all 0 and all 1, strided states and
+   Mamba2-370M's trained shape (b = 4).  The two backward kernels
+   against their plain versions (``ref.flash_attention_bwd_ref``,
+   ``ref.ssd_state_scan_bwd_ref``) at every one of those K2 and K3
+   shapes: K2's in bf16 and fp32, from its own forward output and
+   log-sum-exp (held to the plain version's too), K3's dstates and ds0
+   bit for bit and ddecay to ``DDECAY_RTOL``.  Then each is timed at
+   the served shapes beside its bound, its plain version and, for
+   attention, ``scaled_dot_product_attention`` (timed only; the port
+   never calls it; no single PyTorch call computes K3's scan); the
+   backward kernels at the trained shapes, K2's beside the autograd
+   backward of ``scaled_dot_product_attention`` (timed only);
 4. serve: StarCoder2-7B (dense), Zamba2-7B (hybrid: 81 Mamba2 layers
    and a shared attention block after every 6), Mamba2-370M (pure SSM),
    Llama-4 Scout (MoE, 16 experts top-1 and a shared one; 8 of 48
@@ -55,8 +62,22 @@ which must pass for the run to exit 0:
    fp32, at the depth of ``FP32_CUT``.  Each prints prefill tokens/s,
    ms per decode step, peak memory and a profiled prefill and decode
    step with the device-busy share and the MoE expert products' and
-   MLA latent attention's shares;
-5. simulate: the paper's main path.  A 3-day trace
+   MLA latent attention's shares.  Serving launches no backward kernel;
+5. train: ``train.loop.train`` (AdamW on a cosine schedule, synthetic
+   ``SyntheticLM`` batches, each layer recomputed in the backward pass)
+   at full published width for a few steps: StarCoder2-7B at 16 of its
+   32 layers (3.93 B parameters, a 47.1 GB training state), B = 2,
+   S = 2048, through K2 and its backward kernel, and Mamba2-370M whole,
+   B = 4, S = 2048, through K3 and its backward (``TRAINED``).  Each
+   prints the loss, gradient norm, time and tokens/s of every step
+   (one profiled), the peak memory and the launches, which must match
+   the trained work (K2 and K3 forward once per layer and again for the
+   recompute, their backward once); every gradient must be present and
+   finite and the loss must fall.  Then one fp32 forward and backward
+   at full width and cut depth (``FP32_TRAIN``) through the kernels
+   against the same with ``kernels.ops`` patched to the plain versions
+   on the card: the loss and every gradient leaf;
+6. simulate: the paper's main path.  A 3-day trace
    (``generate_trace(WorkloadSpec(days=3, scale=0.05, seed=0))``, about
    745k requests) through ``build_stack(...).simulate`` on the fully
    co-optimised ``lt-ua+plan`` stack (LT-UA scaling, the routing-aware
@@ -69,7 +90,7 @@ which must pass for the run to exit 0:
    parameters must equal the kernel's bit for bit, and the ILP targets
    its forecasts give are counted against the run's.
 
-6. vector: the paper's main path on the vector engine.
+7. vector: the paper's main path on the vector engine.
    ``run_experiment(ExperimentSpec(engine="vector"), device=cuda)`` over
    the same 3-day trace with the seven strategies of the reference's
    benchmarks (siloed, reactive, LT-I, LT-U, LT-UA, ``lt-ua+plan``,
@@ -78,7 +99,7 @@ which must pass for the run to exit 0:
    kernel (the launch count must equal the segments) and every hourly
    boundary's forecast fits one ``arma_fit`` batch across the fleet.
    Each Report is printed; the vector ``lt-ua+plan`` Report must lie
-   within the reference's vector-vs-event tolerance of phase 5's (0.02
+   within the reference's vector-vs-event tolerance of phase 6's (0.02
    completion, 10% GPU-hours and dollars).  The run is made once more
    under torch.profiler for the kernels' own device time and the run's
    device-busy share (the CUDA events around each launch also hold the
@@ -145,6 +166,16 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # attention: atol = rtol
 SCAN_ATOL = 1e-6         # K3 (fp32), the reference sweep's tolerance
+# The backward kernels against their plain versions.  K2's: fp32 1e-4
+# (both fp32, sums over up to 8192 keys or rows in other orders), bf16
+# 3e-2 (gradients rounded once to bf16 on both sides); its log-sum-exp
+# to LSE_ATOL (fp32 on both sides; the bf16 forward's scores come from
+# the tensor cores).  K3's: dstates and ds0 bit for bit (the same two
+# ops, rounded apart), ddecay (a sum over p*n elements in another order)
+# within DDECAY_RTOL of the sum of its terms' magnitudes.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+LSE_ATOL = 1e-3
+DDECAY_RTOL = 1e-5
 # Decode path vs a full forward over the same tokens, relative L2 error of
 # the last logits.  bf16, as served: dense models only (StarCoder2-7B
 # keeps 1.2e-2).  The SSM and hybrid models' bf16 gap is printed, not
@@ -168,7 +199,7 @@ PROFILED_CALL = 2        # which prefill and which decode call to profile
 PORT_KERNELS = ("flash_fwd_wgmma", "flash_fwd", "decode_split_mma",
                 "decode_split", "decode_combine", "ssd_scan")
 SPIN_CYCLES = 4_000_000  # ~2 ms at H100 clocks: longer than any call's host time
-# The ARMA fit (phase 5): the lt-ua+plan stack of benchmarks/common.py
+# The ARMA fit (phase 6): the lt-ua+plan stack of benchmarks/common.py
 # (stack_spec(BenchSpec(), "lt-ua+plan")), written out: that module
 # imports jax.  Kernel and plain version round every op alike and must
 # agree bit for bit (ARMA_ATOL = 0).
@@ -184,7 +215,7 @@ ARMA_LENGTHS = (1, 8, 255, 257, 511, 2815, 2817, "longest")
 ARMA_LONGEST_STEPS = 20
 ARMA_REPLICAS = 8        # the timed batch of replicas of the run's rows
 FMA_LATENCY_CYCLES = 4   # one dependent fp32 FMA on Hopper
-# The vector engine (phase 6): the seven strategies of
+# The vector engine (phase 7): the seven strategies of
 # benchmarks/common.py:115-142 (stack_spec(BenchSpec(), s)), written out:
 # that module imports jax.  The bucket step's kernel and plain version do
 # the same float32 ops in the same order (BUCKET_ATOL = 0).
@@ -427,6 +458,67 @@ def scan_case(dev, gen, b, c, h, p, n, decay=None, s0=False,
     return states, dec, init
 
 
+#: K2's checked shapes (``flash_case`` arguments), forward and backward
+FLASH_CASES = [
+    ("starcoder2 prefill S=T=1999", dict(B=1, H=36, Hkv=4, S=1999,
+                                          T=1999, hd=128)),
+    ("starcoder2 prefill S=T=333", dict(B=1, H=36, Hkv=4, S=333,
+                                         T=333, hd=128)),
+    ("zamba2 prefill hd=112 S=T=1999", dict(B=1, H=32, Hkv=32, S=1999,
+                                             T=1999, hd=112)),
+    ("zamba2 prefill hd=112 S=T=130", dict(B=1, H=32, Hkv=32, S=130,
+                                            T=130, hd=112)),
+    ("long: S=1024 of T=8192", dict(B=1, H=36, Hkv=4, S=1024, T=8192,
+                                     hd=128)),
+    ("gemma hd=256 g=1", dict(B=1, H=16, Hkv=16, S=700, T=700,
+                               hd=256)),
+    ("window=256", dict(B=2, H=36, Hkv=4, S=1000, T=1000, hd=128,
+                        window=256)),
+    ("fully masked rows", dict(B=2, H=36, Hkv=4, S=200, T=200, hd=128,
+                               window=32, masked=True)),
+    ("S=T=40 (S < 64)", dict(B=2, H=36, Hkv=4, S=40, T=40, hd=128)),
+    ("S=1 of T=300", dict(B=1, H=32, Hkv=32, S=1, T=300, hd=112)),
+    ("padded+live rows in a q tile", dict(B=2, H=36, Hkv=4, S=300,
+                                          T=300, hd=128, padded=True)),
+    ("hd=112 g=9 S=T=500", dict(B=1, H=36, Hkv=4, S=500, T=500,
+                                 hd=112)),
+    ("hd=128 g=1 S=T=500", dict(B=1, H=32, Hkv=32, S=500, T=500,
+                                 hd=128)),
+    ("hd=160 S=T=300", dict(B=1, H=8, Hkv=2, S=300, T=300, hd=160)),
+    ("hd=32 S=T=300", dict(B=1, H=8, Hkv=2, S=300, T=300, hd=32)),
+    ("deepseek-v3 MLA hd=192 S=T=1999", dict(B=1, H=128, Hkv=128,
+                                             S=1999, T=1999, hd=192)),
+    ("MLA hd=192 ragged S=T=333", dict(B=1, H=128, Hkv=128, S=333,
+                                       T=333, hd=192)),
+    ("hd=192 g=4 S=T=70", dict(B=2, H=8, Hkv=2, S=70, T=70, hd=192)),
+    ("whisper encoder bidir S=T=1500", dict(B=1, H=6, Hkv=6, S=1500,
+                                            T=1500, hd=64,
+                                            causal=False)),
+    ("whisper cross S=333 T=1500", dict(B=2, H=6, Hkv=6, S=333,
+                                        T=1500, hd=64, causal=False)),
+    ("bidir hd=192 S=T=200", dict(B=1, H=16, Hkv=16, S=200, T=200,
+                                  hd=192, causal=False)),
+    ("llama4 prefill g=5 S=T=700", dict(B=1, H=40, Hkv=8, S=700,
+                                        T=700, hd=128)),
+]
+#: K3's checked shapes (``scan_case`` arguments), forward and backward
+SCAN_CASES = [
+    ("zamba2 b=1 c=8 h=112 p=n=64", dict(b=1, c=8, h=112, p=64, n=64)),
+    ("mamba2 b=1 c=8 h=32 p=64 n=128", dict(b=1, c=8, h=32, p=64,
+                                             n=128)),
+    ("c=1", dict(b=2, c=1, h=112, p=64, n=64, s0=True)),
+    ("c=33, random s0", dict(b=1, c=33, h=32, p=64, n=128, s0=True)),
+    ("decays all 0", dict(b=1, c=8, h=112, p=64, n=64, decay=0.0,
+                          s0=True)),
+    ("decays all 1", dict(b=1, c=8, h=112, p=64, n=64, decay=1.0,
+                          s0=True)),
+    ("strided states", dict(b=2, c=5, h=112, p=64, n=64, s0=True,
+                            strided=True)),
+    ("mamba2 train b=4 c=8 h=32 p=64 n=128", dict(b=4, c=8, h=32, p=64,
+                                                  n=128)),
+]
+
+
 def check_kernels(dev):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
@@ -434,48 +526,6 @@ def check_kernels(dev):
     from repro_torch.kernels import ssd_scan as ssd
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    flash_cases = [
-        ("starcoder2 prefill S=T=1999", dict(B=1, H=36, Hkv=4, S=1999,
-                                              T=1999, hd=128)),
-        ("starcoder2 prefill S=T=333", dict(B=1, H=36, Hkv=4, S=333,
-                                             T=333, hd=128)),
-        ("zamba2 prefill hd=112 S=T=1999", dict(B=1, H=32, Hkv=32, S=1999,
-                                                 T=1999, hd=112)),
-        ("zamba2 prefill hd=112 S=T=130", dict(B=1, H=32, Hkv=32, S=130,
-                                                T=130, hd=112)),
-        ("long: S=1024 of T=8192", dict(B=1, H=36, Hkv=4, S=1024, T=8192,
-                                         hd=128)),
-        ("gemma hd=256 g=1", dict(B=1, H=16, Hkv=16, S=700, T=700,
-                                   hd=256)),
-        ("window=256", dict(B=2, H=36, Hkv=4, S=1000, T=1000, hd=128,
-                            window=256)),
-        ("fully masked rows", dict(B=2, H=36, Hkv=4, S=200, T=200, hd=128,
-                                   window=32, masked=True)),
-        ("S=T=40 (S < 64)", dict(B=2, H=36, Hkv=4, S=40, T=40, hd=128)),
-        ("S=1 of T=300", dict(B=1, H=32, Hkv=32, S=1, T=300, hd=112)),
-        ("padded+live rows in a q tile", dict(B=2, H=36, Hkv=4, S=300,
-                                              T=300, hd=128, padded=True)),
-        ("hd=112 g=9 S=T=500", dict(B=1, H=36, Hkv=4, S=500, T=500,
-                                     hd=112)),
-        ("hd=128 g=1 S=T=500", dict(B=1, H=32, Hkv=32, S=500, T=500,
-                                     hd=128)),
-        ("hd=160 S=T=300", dict(B=1, H=8, Hkv=2, S=300, T=300, hd=160)),
-        ("hd=32 S=T=300", dict(B=1, H=8, Hkv=2, S=300, T=300, hd=32)),
-        ("deepseek-v3 MLA hd=192 S=T=1999", dict(B=1, H=128, Hkv=128,
-                                                 S=1999, T=1999, hd=192)),
-        ("MLA hd=192 ragged S=T=333", dict(B=1, H=128, Hkv=128, S=333,
-                                           T=333, hd=192)),
-        ("hd=192 g=4 S=T=70", dict(B=2, H=8, Hkv=2, S=70, T=70, hd=192)),
-        ("whisper encoder bidir S=T=1500", dict(B=1, H=6, Hkv=6, S=1500,
-                                                T=1500, hd=64,
-                                                causal=False)),
-        ("whisper cross S=333 T=1500", dict(B=2, H=6, Hkv=6, S=333,
-                                            T=1500, hd=64, causal=False)),
-        ("bidir hd=192 S=T=200", dict(B=1, H=16, Hkv=16, S=200, T=200,
-                                      hd=192, causal=False)),
-        ("llama4 prefill g=5 S=T=700", dict(B=1, H=40, Hkv=8, S=700,
-                                            T=700, hd=128)),
-    ]
     decode_cases = [
         ("starcoder2 decode B=4 W=4096", dict(
             B=4, H=36, Hkv=4, T=4096, hd=128, cur=[4095, 1999, 777, 130])),
@@ -503,25 +553,13 @@ def check_kernels(dev):
         ("whisper cross W=1500 every slot", dict(
             B=4, H=6, Hkv=6, T=1500, hd=64, cur=[1499] * 4)),
     ]
-    scan_cases = [
-        ("zamba2 b=1 c=8 h=112 p=n=64", dict(b=1, c=8, h=112, p=64, n=64)),
-        ("mamba2 b=1 c=8 h=32 p=64 n=128", dict(b=1, c=8, h=32, p=64,
-                                                 n=128)),
-        ("c=1", dict(b=2, c=1, h=112, p=64, n=64, s0=True)),
-        ("c=33, random s0", dict(b=1, c=33, h=32, p=64, n=128, s0=True)),
-        ("decays all 0", dict(b=1, c=8, h=112, p=64, n=64, decay=0.0,
-                              s0=True)),
-        ("decays all 1", dict(b=1, c=8, h=112, p=64, n=64, decay=1.0,
-                              s0=True)),
-        ("strided states", dict(b=2, c=5, h=112, p=64, n=64, s0=True,
-                                strided=True)),
-    ]
     errs = {"flash_attention": 0.0, "decode_attention": 0.0,
-            "ssd_scan": 0.0, "arma_fit": 0.0, "bucket_step": 0.0}
+            "ssd_scan": 0.0, "arma_fit": 0.0, "bucket_step": 0.0,
+            "flash_attention_bwd": 0.0, "ssd_scan_bwd": 0.0}
     failed = []
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[dtype]
-        for label, kw in flash_cases:
+        for label, kw in FLASH_CASES:
             args, opts = flash_case(dev, dtype, gen, **kw)
             got = fa.flash_attention(*args, **opts)
             want = ref.flash_attention_ref(*args, **opts)
@@ -533,7 +571,7 @@ def check_kernels(dev):
             want = ref.decode_attention_ref(*args, **opts)
             failed += report("decode_attention", label, dtype, got, want,
                              errs, tol, tol)
-    for label, kw in scan_cases:
+    for label, kw in SCAN_CASES:
         args = scan_case(dev, gen, **kw)
         prev, fin = ssd.ssd_state_scan(*args)
         want_prev, want_fin = ref.ssd_state_scan_ref(*args)
@@ -545,9 +583,71 @@ def check_kernels(dev):
             failed.append(f"ssd_scan {label}: prev[:, 0] is not s0")
     failed += check_arma(dev, gen, errs)
     failed += check_bucket(dev, errs)
+    failed += check_backward(dev, errs)
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
     return errs
+
+
+def check_backward(dev, errs):
+    """The two backward kernels against their plain versions: K2's at
+    every shape of ``FLASH_CASES`` in bf16 and fp32 (dq, dk, dv from the
+    kernel's own forward output and log-sum-exp, which is also held to
+    the plain version's, and a random dO laid out as the model's
+    gradient arrives: a transposed view), K3's at every shape of
+    ``SCAN_CASES`` (dstates and ds0 bit for bit, ddecay within
+    ``DDECAY_RTOL`` of the sum of its terms' magnitudes)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    failed = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BWD_TOL[dtype]
+        for label, kw in FLASH_CASES:
+            args, opts = flash_case(dev, dtype, gen, **kw)
+            out, lse = fa.flash_attention(*args, return_lse=True, **opts)
+            _, want_lse = ref.flash_attention_lse_ref(*args, **opts)
+            dead = want_lse <= 0.5 * ref.NEG_INF
+            lse_ok = torch.equal(lse <= 0.5 * ref.NEG_INF, dead) and bool(
+                torch.all((lse - want_lse)[~dead].abs() <= LSE_ATOL))
+            if not lse_ok:
+                failed.append(f"flash_attention lse {dtype} {label}")
+            do = randn(dev, out.transpose(1, 2).shape, dtype,
+                       gen).transpose(1, 2)
+            q, k, v, qpos, kpos = args
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos,
+                                         **opts)
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, qpos,
+                                               kpos, **opts)
+            failed += report("flash_attention_bwd", label, dtype,
+                             torch.cat([g.flatten() for g in got]),
+                             torch.cat([w.flatten() for w in want]), errs,
+                             tol, tol)
+            del got, want
+    for label, kw in SCAN_CASES:
+        states, dec, init = scan_case(dev, gen, **kw)
+        prev, _ = ssd.ssd_state_scan(states, dec, init)
+        dprev = torch.randn(prev.shape, generator=gen, device=dev)
+        dfin = torch.randn(init.shape, generator=gen, device=dev)
+        got = ssd.ssd_state_scan_bwd(dec, prev, dprev, dfin)
+        want = ref.ssd_state_scan_bwd_ref(dec, prev, dprev, dfin)
+        failed += report("ssd_scan_bwd", label + " dstates, ds0",
+                         torch.float32,
+                         torch.cat([got[0].flatten(), got[2].flatten()]),
+                         torch.cat([want[0].flatten(), want[2].flatten()]),
+                         errs, 0.0, 0.0)
+        mag = (want[0].abs() * prev.abs()).sum(dim=(-2, -1))
+        err = (got[1] - want[1]).abs()
+        ok = bool(torch.all(err <= DDECAY_RTOL * mag + 1e-6))
+        log(f"  {'ssd_scan_bwd':16s} {'float32':8s} {label + ' ddecay':31s} "
+            f"max_abs_err={float(err.max()):.3e} (of sums up to "
+            f"{float(mag.max()):.3e}) rtol={DDECAY_RTOL:g} of the terms' "
+            f"magnitudes {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"ssd_scan_bwd {label} ddecay")
+    return failed
 
 
 def arma_rows(dev, gen, rows, length):
@@ -635,7 +735,8 @@ def time_kernels(dev, errs):
     Zamba2-7B's hd = 112, Llama-4 Scout's and Pixtral-12B's widths,
     DeepSeek-V3's MLA prefill (hd 192, V padded), Whisper-tiny's encoder,
     cross-attention and decode; K3 at Zamba2-7B's prefill of 2000
-    tokens."""
+    tokens; the backward kernels at the trained shapes (``bwd_row``, K3's
+    at Mamba2-370M's B = 4, S = 2048)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as dec
@@ -679,6 +780,51 @@ def time_kernels(dev, errs):
                   + f" bf16 {'causal' if causal else 'every pair kept'}",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:26"))
+
+    def bwd_row(label, B, H, Hkv, S, hd, T=None, causal=True, vd=None):
+        """K2's backward at K2's shapes: dq, dk, dv from the kernel's
+        forward output and log-sum-exp and a random dO.  The library call
+        is the autograd backward of ``scaled_dot_product_attention`` at
+        the same shape (timed only; the port never calls it).  Bound: 2.5
+        times the forward's operations (S and dP recomputed, dV, dK, dQ);
+        bytes: q, k, v, o, dO and lse read once, dq, dk, dv written."""
+        T = T or S
+        args, opts = flash_case(dev, bf16, gen, B, H, Hkv, S, T, hd,
+                                causal=causal)
+        q, k, v, qpos, kpos = args
+        vd = vd or hd
+        if vd < hd:
+            v = v.clone()
+            v[..., vd:] = 0
+        out, lse = fa.flash_attention(q, k, v, qpos, kpos, return_lse=True,
+                                      **opts)
+        do = randn(dev, (B, S, H, hd), bf16, gen).transpose(1, 2)
+        if vd < hd:
+            do = do.clone()
+            do[..., vd:] = 0
+        lq, lk, lv = (x.detach().requires_grad_() for x in
+                      (q, k, v[..., :vd]))
+        lout = F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=causal, scale=opts["scale"],
+            enable_gqa=True)
+        kept = S * (S + 1) // 2 if causal else S * T
+        cases.append(dict(
+            name="flash_attention_bwd", dtype=bf16,
+            fn=lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, qpos,
+                                              kpos, **opts),
+            plain=lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                      qpos, kpos, **opts),
+            library=lambda: torch.autograd.grad(
+                lout, (lq, lk, lv), do[..., :vd], retain_graph=True),
+            flops=5 * B * H * (hd + vd) * kept,
+            bytes=(2 * B * H * S * (hd + vd) + 2 * B * Hkv * T * (hd + vd))
+            * 2 + B * H * S * 4 + B * (S + T) * 4,
+            shape=f"{label}: B={B} H={H} Hkv={Hkv} S={S} T={T} hd={hd}"
+                  + (f" (V {vd}, zero-padded to {hd}; bound unpadded)"
+                     if vd < hd else "")
+                  + f" bf16 {'causal' if causal else 'every pair kept'}",
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cuh",
+            replaces="src/repro/models/attention.py:118"))
 
     def decode_row(label, B, H, Hkv, T, hd, cur):
         """K1 at B slots of a T-slot cache filled to ragged lengths."""
@@ -731,6 +877,31 @@ def time_kernels(dev, errs):
         shape=f"zamba2-7b: b={b} c={c} h={h} p={p} n={n} fp32",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:22"))
+
+    # K2's backward at the trained shape (StarCoder2-7B, B = 2, S = 2048)
+    # and at the other families' widths
+    bwd_row("starcoder2-7b train", 2, 36, 4, 2048, 128)
+    bwd_row("zamba2-7b shared block", 1, 32, 32, 2000, 112)
+    bwd_row("deepseek-v3-671b MLA", 1, 128, 128, 2000, 192, vd=128)
+    bwd_row("whisper-tiny encoder", 1, 6, 6, 1500, 64, causal=False)
+    bwd_row("whisper-tiny cross", 1, 6, 6, 2000, 64, T=1500, causal=False)
+
+    # K3's backward at Mamba2-370M's trained shape: B = 4, S = 2048
+    b, c, h, p, n = 4, 8, 32, 64, 128
+    st, dec_, init = scan_case(dev, gen, b, c, h, p, n)
+    prev, _ = ssd.ssd_state_scan(st, dec_, init)
+    dprev = torch.randn(prev.shape, generator=gen, device=dev)
+    dfin = torch.randn(init.shape, generator=gen, device=dev)
+    cases.append(dict(
+        name="ssd_scan_bwd", dtype=f32,
+        fn=lambda: ssd.ssd_state_scan_bwd(dec_, prev, dprev, dfin),
+        plain=lambda: ref.ssd_state_scan_bwd_ref(dec_, prev, dprev, dfin),
+        library=None,            # no single PyTorch call computes the scan
+        flops=4 * b * c * h * p * n,
+        bytes=4 * (3 * b * c * h * p * n + 2 * b * h * p * n + 2 * b * c * h),
+        shape=f"mamba2-370m train: b={b} c={c} h={h} p={p} n={n} fp32",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/models/ssm.py:134"))
 
     rows = {}
     for r in cases:
@@ -847,9 +1018,6 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
     generated tokens but the last, and its bf16 decode gap: the relative
     L2 error of its last decode logits and the bf16 full forward's
     logits they are held to."""
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import model
     from repro_torch.serving.engine import ServingEngine
@@ -917,14 +1085,12 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
                      f"prefill of {n} tokens", n)
 
     eng._decode, eng._prefill = timed_decode, timed_prefill
-    fa.LAUNCHES = dec.LAUNCHES = ssd.LAUNCHES = 0
+    reset_model_counts()
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.LAUNCHES,
-                "decode_attention": dec.LAUNCHES,
-                "ssd_scan": ssd.LAUNCHES}
+    launches = model_counts()
 
     for r in reqs:
         log(f"  req {r.rid} [{r.tier}] prompt={len(r.prompt)} "
@@ -935,6 +1101,7 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
         raise SystemExit(f"serve {arch}: a request did not finish")
     want = expected_launches(cfg, stats["prefill_calls"],
                              stats["decode_calls"])
+    want.update(flash_attention_bwd=0, ssd_scan_bwd=0)   # no graph, no bwd
     log(f"  launches {launches}, expected {want} ({stats['prefill_calls']} "
         f"prefill calls, {stats['decode_calls']} decode calls)")
     if launches != want:
@@ -1047,6 +1214,218 @@ def check_fp32_decode(dev, arch: str, seq, steps: int, bf16_gap) -> float:
         f"{yard:.3e} ({depth_note(cfg)}; gap / yardstick "
         f"{gap / yard:.2f})")
     return rel
+
+
+# ---------------------------------------------------------------- train
+#: (arch, depth cut, batch, sequence length, steps, remat, peak lr)
+#: trained in turn through ``train.loop.train`` at full published width:
+#: StarCoder2-7B at 16 of its 32 layers (3.93 B parameters: bf16 weights
+#: and gradients and fp32 AdamW moments take 47.1 GB), Mamba2-370M
+#: whole.  AdamW's first step moves every weight by about lr (m/sqrt(v)
+#: is +-1): at StarCoder2-7B's width that swings the loss of step 1 from
+#: 11.4 to 18-25 for any peak from 3e-5 to 5e-4, and back by step 5 only
+#: some of the time; at 1e-5 it falls at once.  Mamba2-370M falls
+#: smoothly at 3e-4 (``scripts/torch_train_lr.py`` runs other peaks).
+TRAINED = (("starcoder2-7b", dict(num_layers=16), 2, 2048, 6, True, 1e-5),
+           ("mamba2-370m", {}, 4, 2048, 6, True, 3e-4))
+PROFILED_STEP = 2        # which training step to profile
+#: the fp32 step, kernels against plain versions on the card: (arch,
+#: depth cut, batch, sequence length)
+FP32_TRAIN = (("starcoder2-7b", dict(num_layers=2), 1, 2048),
+              ("mamba2-370m", dict(num_layers=4), 2, 2048))
+# fp32, kernels vs plain versions (both fp32, no TF32): loss rel 1e-5 and
+# each gradient leaf rel L2 1e-4, the CPU parity tests' bounds against
+# jax.value_and_grad (tests/test_torch_train.py)
+FP32_TRAIN_LOSS_TOL = 1e-5
+FP32_TRAIN_GRAD_TOL = 1e-4
+
+
+def model_counts():
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    return {"flash_attention": fa.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "decode_attention": dec.LAUNCHES, "ssd_scan": ssd.LAUNCHES,
+            "ssd_scan_bwd": ssd.BWD_LAUNCHES}
+
+
+def reset_model_counts() -> None:
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    fa.LAUNCHES = fa.BWD_LAUNCHES = dec.LAUNCHES = 0
+    ssd.LAUNCHES = ssd.BWD_LAUNCHES = 0
+
+
+def expected_train_launches(cfg, steps: int, remat: bool):
+    """Per step: K2 and K3 forward once per attention and SSM layer (as a
+    prefill runs them, ``expected_launches``), their backward kernels
+    once each; with ``remat`` the forward again for every layer the
+    backward recomputes: every layer of a dense, MoE or VLM stack and
+    every SSM layer, an encoder-decoder's decoder layers (self and cross)
+    but not its encoder, and not the hybrid's shared block."""
+    per = expected_launches(cfg, 1, 0)
+    attn, scan = per["flash_attention"], per["ssd_scan"]
+    again_attn = again_scan = 0
+    if remat:
+        again_scan = scan
+        if cfg.family == "audio":
+            again_attn = 2 * cfg.num_layers
+        elif cfg.family not in ("ssm", "hybrid"):
+            again_attn = attn
+    return {"flash_attention": steps * (attn + again_attn),
+            "flash_attention_bwd": steps * attn,
+            "decode_attention": 0,
+            "ssd_scan": steps * (scan + again_scan),
+            "ssd_scan_bwd": steps * scan}
+
+
+def train_run(dev, arch, cut, batch, seq, steps, remat, lr):
+    """``train.loop.train`` on ``arch`` at full width (depth ``cut``) for
+    ``steps`` steps of ``batch`` x ``seq`` synthetic tokens, AdamW on a
+    cosine schedule peaking at ``lr`` (warmup 1 step).  Each step is
+    timed (host clock around a synchronised step; step PROFILED_STEP
+    under the profiler instead); prints the loss, gradient norm, time and
+    tokens/s of each, the peak memory and the kernel launches against
+    the expected counts.  Fails unless every gradient is present (the
+    step raises on one left None) and finite (its global norm is), the
+    loss falls and the counts match.  Returns the counts."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import check_fits, train_state_bytes
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+
+    cfg = served_config(arch, cut)
+    check_fits(cfg, dev)
+    log(f"  {cfg.name} ({cfg.family}): {cfg.num_layers} layers "
+        f"({depth_note(cfg)}), d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.3f} B params, training state "
+        f"{train_state_bytes(cfg) / 1e9:.1f} GB ({cfg.dtype} weights and "
+        f"gradients, fp32 AdamW moments); B={batch} S={seq}, "
+        f"{steps} steps, remat {remat}, peak lr {lr:g}")
+    stats = []
+    make = loop.make_train_step
+
+    def timed_factory(cfg_, opt_, remat=False):
+        step = make(cfg_, opt_, remat=remat)
+
+        def timed(params, state, batch_):
+            if len(stats) == PROFILED_STEP:
+                out = profiled(f"training step {PROFILED_STEP}",
+                               lambda: step(params, state, batch_))
+                stats.append(dict(s=None, loss=float(out[2]["loss"]),
+                                  gnorm=float(out[2]["grad_norm"])))
+                return out
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(params, state, batch_)
+            torch.cuda.synchronize()
+            stats.append(dict(s=time.perf_counter() - t,
+                              loss=float(out[2]["loss"]),
+                              gnorm=float(out[2]["grad_norm"])))
+            return out
+
+        return timed
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = AdamW(lr=cosine_schedule(lr, warmup=1, total=steps))
+    data = DataConfig(batch_size=batch, seq_len=seq, seed=0)
+    reset_model_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "make_train_step", timed_factory):
+        out = loop.train(cfg, steps=steps, data=data, opt=opt, seed=0,
+                         remat=remat, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = model_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for i, st in enumerate(stats):
+        when = ("profiled" if st["s"] is None else
+                f"{st['s'] * 1e3:.1f} ms, "
+                f"{batch * seq / st['s']:.0f} tokens/s")
+        log(f"    step {i}: loss {st['loss']:.4f}, grad norm "
+            f"{st['gnorm']:.4f}, {when}")
+    timed_s = [st["s"] for st in stats[1:] if st["s"] is not None]
+    step_s = sum(timed_s) / len(timed_s)
+    log(f"  {steps} steps in {wall:.1f} s with init; steady step "
+        f"{step_s * 1e3:.1f} ms (mean of steps 1.. but the profiled), "
+        f"{batch * seq / step_s:.0f} tokens/s; peak device memory "
+        f"{peak:.2f} GiB")
+    want = expected_train_launches(cfg, steps, remat)
+    log(f"  launches {counts}, expected {want}")
+    if counts != want:
+        raise SystemExit(f"train {arch}: kernel launch counts do not match "
+                         f"the trained work")
+    if not all(np.isfinite(st["gnorm"]) and np.isfinite(st["loss"])
+               for st in stats):
+        raise SystemExit(f"train {arch}: a loss or gradient is not finite")
+    if not stats[-1]["loss"] < stats[0]["loss"]:
+        raise SystemExit(f"train {arch}: the loss did not fall "
+                         f"({stats[0]['loss']:.4f} -> "
+                         f"{stats[-1]['loss']:.4f})")
+    del out
+    return counts
+
+
+def check_fp32_train(dev, arch, cut, batch, seq) -> None:
+    """One fp32 forward and backward (``model.loss_fn``) at full width
+    and depth ``cut`` through the kernels, against the same with
+    ``kernels.ops`` patched to the plain versions (torch autograd
+    through them), on the card, from the same weights and batch: the
+    loss and every gradient leaf (relative L2)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(served_config(arch, cut), dtype="float32")
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    params.requires_grad_(True)
+    inputs = loop.batch_to(next(SyntheticLM(
+        cfg, DataConfig(batch_size=batch, seq_len=seq)).batches(1)), dev)
+
+    def plain_flash(q, k, v, q_pos, k_pos, *, scale, causal=True,
+                    window=0):
+        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, scale=scale,
+                                       causal=causal, window=window)
+
+    def loss_and_grads():
+        for p in params.parameters():
+            p.grad = None
+        loss = model.loss_fn(cfg, params, inputs)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in params.named_parameters()}
+
+    reset_model_counts()
+    loss_k, grads_k = loss_and_grads()
+    kernel_counts = model_counts()
+    reset_model_counts()
+    with mock.patch.object(ops, "flash_attention", plain_flash), \
+            mock.patch.object(ops, "ssd_state_scan", ref.ssd_state_scan_ref):
+        loss_p, grads_p = loss_and_grads()
+    if any(model_counts().values()):
+        raise SystemExit(f"fp32 train {arch}: the plain run launched a "
+                         f"kernel")
+    rel = {n: float((g - grads_p[n]).norm() / grads_p[n].norm().clamp_min(
+        1e-30)) for n, g in grads_k.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"  fp32 {cfg.name} ({depth_note(cfg)}), B={batch} S={seq}: loss "
+        f"{loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), rel "
+        f"{loss_rel:.2e} (tol {FP32_TRAIN_LOSS_TOL:g}); {len(rel)} gradient "
+        f"leaves, worst rel L2 {rel[worst]:.2e} ({worst}; tol "
+        f"{FP32_TRAIN_GRAD_TOL:g}); kernel launches {kernel_counts}")
+    if not (loss_rel <= FP32_TRAIN_LOSS_TOL
+            and rel[worst] <= FP32_TRAIN_GRAD_TOL
+            and kernel_counts["flash_attention_bwd"]
+            + kernel_counts["ssd_scan_bwd"] > 0):
+        raise SystemExit(f"fp32 train {arch}: the kernels' step disagrees "
+                         f"with the plain versions'")
+    del params, grads_k, grads_p
 
 
 # ---------------------------------------------------------------- simulate
@@ -1361,8 +1740,8 @@ def vector_specs():
 
 
 def vector_experiment():
-    """The seven strategies over phase 5's 3-day trace on the vector
-    engine, with the fit and ILP caches emptied (phase 5 and its replay
+    """The seven strategies over phase 6's 3-day trace on the vector
+    engine, with the fit and ILP caches emptied (phase 6 and its replay
     filled them with this trace's fits and plans), so a run fits and
     solves its own."""
     from repro_torch.api import ExperimentSpec
@@ -1423,7 +1802,7 @@ def report_vector(vrun, launches, event_run) -> None:
     """Print each strategy's Report and the batches' control-plane
     counters; fail unless every segment launched the kernel, every run
     completed, and the vector ``lt-ua+plan`` Report is within the
-    reference's vector-vs-event tolerance of phase 5's."""
+    reference's vector-vs-event tolerance of phase 6's."""
     results, segs = vrun["results"], vrun["segs"]
     for r in results:
         log(f"  {r.strategy:10s} [{r.engine}] GPU-hours "
@@ -1471,7 +1850,7 @@ def report_vector(vrun, launches, event_run) -> None:
     d_frac = vec_frac - ev_frac
     d_hours = vec.total_instance_hours / ev.total_instance_hours() - 1.0
     d_dollars = vec.total_gpu_dollars / ev.total_gpu_dollars() - 1.0
-    log(f"  lt-ua+plan, vector vs event loop (phase 5): completion "
+    log(f"  lt-ua+plan, vector vs event loop (phase 6): completion "
         f"{vec_frac:.5f} vs {ev_frac:.5f} ({d_frac:+.5f}, tol "
         f"{COMPLETION_ABS_TOL}), GPU-hours {d_hours:+.4%}, dollars "
         f"{d_dollars:+.4%} (tol {HOURS_REL_TOL:.0%})")
@@ -1537,7 +1916,7 @@ class PlainStepGraph:
 
 def profile_vector(dev, launches) -> None:
     """The vector run once more under torch.profiler (device activity
-    only): the bucket_step kernels' own device time (phase 6's events
+    only): the bucket_step kernels' own device time (phase 7's events
     around each launch also hold the host's enqueue gaps), the fit
     kernels', and the run's device-busy share of its wall time (which
     the profiler inflates)."""
@@ -1742,13 +2121,29 @@ def main() -> int:
         del gap
         gc.collect()
         torch.cuda.empty_cache()
+
+    for arch, cut, batch, seq, steps, remat, lr in TRAINED:
+        log(f"[train] {arch}, full width, "
+            f"{depth_note(served_config(arch, cut))}, train.loop.train, "
+            f"B={batch} S={seq}, {steps} steps")
+        by_run[f"train {arch}"] = train_run(dev, arch, cut, batch, seq,
+                                            steps, remat, lr)
+        gc.collect()             # the timing hooks form a cycle
+        torch.cuda.empty_cache()
+        log(f"  freed: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+            f"still allocated")
+    for arch, cut, batch, seq in FP32_TRAIN:
+        log(f"[train] fp32 step, kernels vs plain versions: {arch}")
+        check_fp32_train(dev, arch, cut, batch, seq)
+        gc.collect()
+        torch.cuda.empty_cache()
     for row in rows:
         row["launches_by_run"] = {a: n[row["name"]]
                                   for a, n in by_run.items()}
         row["launches"] = sum(row["launches_by_run"].values())
         if row["launches"] <= 0:
             raise SystemExit(f"{row['name']} never launched on the served "
-                             f"paths")
+                             f"and trained paths")
 
     log(f"[simulate] lt-ua+plan, event loop, {SIM_WORKLOAD['days']:g} days, "
         f"forecast fits on the card")

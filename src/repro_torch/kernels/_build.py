@@ -35,8 +35,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "arma_fit",
-           "bucket_step")
+SOURCES = ("flash_attention", "flash_attention_bwd_f32",
+           "flash_attention_bwd_bf16", "decode_attention", "ssd_scan",
+           "arma_fit", "bucket_step")
 #: flags of one source beside ``NVCC_FLAGS``: the bucket step must round
 #: every multiply and add apart, as its plain version does
 SOURCE_FLAGS = {"bucket_step": ("--fmad=false",)}
@@ -130,6 +131,14 @@ def int64s(values) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether ``t`` is unit-stride along its last axis with every row
+    starting on a 16-byte boundary (rows are read as 16-byte vectors)."""
+    size = t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
+        (st * size) % 16 for n, st in zip(t.shape[:-1], t.stride()) if n > 1)
+
+
 def check_qkv(kernel: str, head_dims, **tensors: torch.Tensor) -> None:
     """Raise unless the tensors are what the attention kernels read: on a
     CUDA device, one dtype of ``DTYPES``, one head dimension out of
@@ -147,10 +156,7 @@ def check_qkv(kernel: str, head_dims, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{kernel} kernel: {name} has head_dim "
                              f"{t.shape[-1]}; supported: {head_dims}, "
                              f"equal for all")
-        size = t.element_size()
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-                (st * size) % 16 for n, st in zip(t.shape[:-1], t.stride())
-                if n > 1):
+        if not rows_aligned(t):
             raise ValueError(f"{kernel} kernel: {name} must have a "
                              f"unit-stride head dimension and 16-byte "
                              f"aligned rows (strides {t.stride()})")

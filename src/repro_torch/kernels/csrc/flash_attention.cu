@@ -24,6 +24,12 @@
 // to 128, 160 to 192) by the TMA zero fill; 192 (MLA's nope + rope
 // width, V zero-padded to it by the caller) and 256 need none.
 //
+// Both write each row's log-sum-exp, in natural-log units of the scaled
+// scores (lse = m + log l), into `lse` (B,H,S) fp32 when it is not null:
+// the backward (csrc/flash_attention_bwd.cuh) recomputes P = exp(s - lse).
+// A row that keeps no key gets the mask value NEG_INF, which the backward
+// reads as "mean(V)".  Serving passes null and writes nothing.
+//
 // fp32: `flash_fwd`, scalar fp32 FMAs from shared memory (never TF32).
 // One 64-row q tile per block walks 32-key tiles with 16-byte loads; a
 // tile with no kept pair is skipped once every row of the block has
@@ -54,7 +60,7 @@ constexpr int NT = 256;  // threads: 32 row groups (2 rows) x 8 column groups
 
 struct Args {
   const void* q; const void* k; const void* v;
-  const int* qpos; const int* kpos; void* out;
+  const int* qpos; const int* kpos; void* out; float* lse;
   int B, H, Hkv, S, T, g, hd;
   long long sqb, sqh, sqs, skb, skh, skt, svb, svh, svt;
   long long sob, soh, sos, sqpb, sqps, skpb, skpt;
@@ -227,6 +233,9 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
       out[qi * a.sos + cg + 8 * j] = from_f<T>(acc[i][j] * inv);
+    if (a.lse != nullptr && cg == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.S + qi] =
+          m[i] > 0.5f * NEG_INF ? m[i] + logf(l[i]) : NEG_INF;
   }
 }
 
@@ -544,6 +553,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int qi = q0 + r0 + 8 * i;
     const bool mean = !(m[i] > 0.5f * NEG_INF);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && lane % 4 == 0)   // m, l: base 2, scale folded in
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.S + qi] =
+          mean ? NEG_INF : (m[i] + log2f(l[i])) * 0.6931471805599453f;
 #pragma unroll
     for (int nb = 0; nb < HDP / 8; ++nb) {
       const int col = 8 * nb + c0;
@@ -682,11 +694,12 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
 
 // dims: B, H, Hkv, S, T, hd.  strides (elements): q (b,h,s), k (b,h,t),
 // v (b,h,t), out (b,h,s), q_pos (b,s), k_pos (b,t); the head dimension
-// of q, k, v and out is unit-stride.  dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch (0 on success).
+// of q, k, v and out is unit-stride.  lse: null, or a contiguous (B,H,S)
+// fp32 output.  dtype: 0 = float32, 1 = bfloat16.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* q_pos,
-                                   const void* k_pos, void* out,
+                                   const void* k_pos, void* out, void* lse,
                                    const long long* dims,
                                    const long long* strides, float scale,
                                    int causal, int window, void* stream) {
@@ -695,6 +708,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   a.qpos = static_cast<const int*>(q_pos);
   a.kpos = static_cast<const int*>(k_pos);
   a.out = out;
+  a.lse = static_cast<float*>(lse);
   a.B = static_cast<int>(dims[0]);
   a.H = static_cast<int>(dims[1]);
   a.Hkv = static_cast<int>(dims[2]);

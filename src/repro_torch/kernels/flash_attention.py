@@ -11,6 +11,13 @@ aligned, and this wrapper raises (through ``_build.check_qkv``) on any
 that is not.  This wrapper only launches: it raises for tensors that
 are not on a CUDA device.  ``ops.flash_attention`` picks between it and
 the plain version in ``ref``.
+
+Training: with ``return_lse`` the forward also writes each row's
+log-sum-exp, and :func:`flash_attention_bwd` launches the backward
+kernels of ``csrc/flash_attention_bwd.cuh`` on it (built as
+``flash_attention_bwd_f32.cu`` and ``flash_attention_bwd_bf16.cu``, one
+library per input type; ``ops`` wraps both directions in a
+``torch.autograd.Function``).
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from repro_torch.kernels import _build
 
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
+#: launches of the backward kernel since the count was last set to 0
+BWD_LAUNCHES = 0
 
 HEAD_DIMS = (16, 32, 64, 112, 128, 160, 192, 256)
 
@@ -30,34 +39,61 @@ HEAD_DIMS = (16, 32, 64, 112, 128, 160, 192, 256)
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
         _build.INT64_PTR, _build.INT64_PTR, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_fn(dtype: torch.dtype):
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    fn = _build.load(f"flash_attention_bwd_{name}").flash_attention_bwd
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
+        _build.INT64_PTR, _build.INT64_PTR, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_shapes(q, k, v):
+    _build.check_qkv("flash_attention", HEAD_DIMS, q=q, k=k, v=v)
+    B, H = q.shape[:2]
+    Hkv = k.shape[1]
+    if H % Hkv or k.shape[0] != B or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _positions(pos, B, n, dev):
+    return pos.to(device=dev, dtype=torch.int32).expand(B, n)
+
+
 def flash_attention(q, k, v, q_pos, k_pos, *, scale: float,
-                    causal: bool = True, window: int = 0):
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """q: (B,H,S,hd); k/v: (B,Hkv,T,hd); q_pos: (B,S); k_pos: (B,T).
 
     Returns (B,H,S,hd) in ``q.dtype``: a transposed view of a
     (B,S,H,hd) buffer, so ``.transpose(1, 2)`` of it is contiguous.
+    With ``return_lse``, also each row's log-sum-exp (B,H,S) fp32, in
+    natural-log units of the scaled scores (``NEG_INF`` for a row that
+    keeps no key).
     """
     global LAUNCHES
-    _build.check_qkv("flash_attention", HEAD_DIMS, q=q, k=k, v=v)
+    _check_shapes(q, k, v)
     B, H, S, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    if H % Hkv or k.shape[0] != B or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     dev = q.device
-    q_pos = q_pos.to(device=dev, dtype=torch.int32).expand(B, S)
-    k_pos = k_pos.to(device=dev, dtype=torch.int32).expand(B, T)
+    q_pos = _positions(q_pos, B, S, dev)
+    k_pos = _positions(k_pos, B, T, dev)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
     out = out.transpose(1, 2)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if B == 0 or S == 0:
-        return out
+        return (out, lse) if return_lse else out
     if T == 0:
         raise ValueError("flash_attention kernel: no keys (T == 0)")
     dims = _build.int64s((B, H, Hkv, S, T, hd))
@@ -68,8 +104,64 @@ def flash_attention(q, k, v, q_pos, k_pos, *, scale: float,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(_build.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-                    out.data_ptr(), dims, strides, float(scale),
-                    int(bool(causal)), int(window), stream)
+                    out.data_ptr(), None if lse is None else lse.data_ptr(),
+                    dims, strides, float(scale), int(bool(causal)),
+                    int(window), stream)
     _build.check(err, "flash_attention_fwd")
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, q_pos, k_pos, *, scale: float,
+                        causal: bool = True, window: int = 0):
+    """The gradients (dq, dk, dv) of ``flash_attention``'s output ``o``
+    given its gradient ``do`` (B,H,S,hd) and the forward's ``lse``.
+
+    dq is a transposed view of a (B,S,H,hd) buffer and dk, dv of
+    (B,T,Hkv,hd) ones, each in its input's dtype.  ``do`` may have any
+    strides: it is copied when its head dimension is not unit-stride
+    with 16-byte aligned rows, which the kernel reads.
+    """
+    global BWD_LAUNCHES
+    _check_shapes(q, k, v)
+    B, H, S, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if do.shape != q.shape or o.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd kernel: q {tuple(q.shape)}, "
+                         f"o {tuple(o.shape)}, do {tuple(do.shape)}")
+    do = do.to(q.dtype)
+    if not _build.rows_aligned(do):
+        do = do.contiguous()
+    _build.check_qkv("flash_attention_bwd", HEAD_DIMS, q=q, o=o, do=do)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError("flash_attention_bwd kernel: lse must be a "
+                         "contiguous (B,H,S) float32 tensor on q's device")
+    dev = q.device
+    q_pos = _positions(q_pos, B, S, dev)
+    k_pos = _positions(k_pos, B, T, dev)
+    dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((B, T, Hkv, hd), dtype=k.dtype,
+                     device=dev).transpose(1, 2)
+    dv = torch.empty((B, T, Hkv, hd), dtype=v.dtype,
+                     device=dev).transpose(1, 2)
+    if B == 0 or S == 0 or T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    dims = _build.int64s((B, H, Hkv, S, T, hd))
+    strides = _build.int64s(
+        (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+         *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+         *dk.stride()[:3], *dv.stride()[:3], *q_pos.stride(),
+         *k_pos.stride()))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bwd_fn(q.dtype)(
+            _build.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            q_pos.data_ptr(), k_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dims, strides, float(scale), int(bool(causal)),
+            int(window), stream)
+    _build.check(err, "flash_attention_bwd")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv

@@ -5,8 +5,20 @@ the kernel (which raises on what it cannot take); it never falls back
 to the plain version.  A CPU tensor takes the plain version in
 ``ref``, since the kernels exist only for the card.  Each kernel
 module's ``LAUNCHES`` counts its launches.
+
+``flash_attention`` and ``ssd_state_scan`` are differentiable: each is
+a ``torch.autograd.Function`` whose forward runs the kernel (K2, which
+then also writes each row's log-sum-exp, or K3) and whose backward
+runs its backward kernel (``csrc/flash_attention_bwd.cuh``, the reverse
+scan in ``csrc/ssd_scan.cu``), counted in the kernel module's
+``BWD_LAUNCHES``; on the CPU both directions take the plain versions
+(``ref.flash_attention_bwd_ref``, ``ref.ssd_state_scan_bwd_ref``).  A
+call that needs no gradient (serving) runs the forward alone, as
+before.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import arma_fit as _arma
 from repro_torch.kernels import bucket_step as _bucket
@@ -16,12 +28,39 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, scale, causal, window):
+        opts = dict(scale=scale, causal=causal, window=window)
+        grad = any(ctx.needs_input_grad[:3])
+        if q.is_cuda:
+            out = _fa.flash_attention(q, k, v, q_pos, k_pos,
+                                      return_lse=grad, **opts)
+        elif grad:
+            out = ref.flash_attention_lse_ref(q, k, v, q_pos, k_pos, **opts)
+        else:
+            out = ref.flash_attention_ref(q, k, v, q_pos, k_pos, **opts)
+        if not grad:
+            return out
+        out, lse = out
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
+        fn = _fa.flash_attention_bwd if do.is_cuda \
+            else ref.flash_attention_bwd_ref
+        dq, dk, dv = fn(q, k, v, out, lse, do, q_pos, k_pos, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, q_pos, k_pos, *, scale: float,
                     causal: bool = True, window: int = 0):
     """q: (B,H,S,hd); k/v: (B,Hkv,T,hd); q_pos: (B,S); k_pos: (B,T)."""
-    fn = _fa.flash_attention if q.is_cuda else ref.flash_attention_ref
-    return fn(q, k, v, q_pos, k_pos, scale=scale, causal=causal,
-              window=window)
+    return _FlashAttention.apply(q, k, v, q_pos, k_pos, scale, causal,
+                                 window)
 
 
 def decode_attention(q, k, v, k_pos, cur_pos, *, scale: float,
@@ -31,10 +70,28 @@ def decode_attention(q, k, v, k_pos, cur_pos, *, scale: float,
     return fn(q, k, v, k_pos, cur_pos, scale=scale, window=window)
 
 
+class _SSDStateScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, states, decay, s0):
+        fn = _ssd.ssd_state_scan if states.is_cuda \
+            else ref.ssd_state_scan_ref
+        prev, final = fn(states, decay, s0)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(decay, prev)
+        return prev, final
+
+    @staticmethod
+    def backward(ctx, dprev, dfinal):
+        decay, prev = ctx.saved_tensors
+        fn = _ssd.ssd_state_scan_bwd if prev.is_cuda \
+            else ref.ssd_state_scan_bwd_ref
+        return fn(decay, prev, dprev, dfinal)
+
+
 def ssd_state_scan(states, decay, s0):
-    """states: (b,c,h,p,n); decay: (b,c,h); s0: (b,h,p,n); all fp32."""
-    fn = _ssd.ssd_state_scan if states.is_cuda else ref.ssd_state_scan_ref
-    return fn(states, decay, s0)
+    """states: (b,c,h,p,n); decay: (b,c,h); s0: (b,h,p,n); all fp32.
+    Returns (prev (b,c,h,p,n), final (b,h,p,n))."""
+    return _SSDStateScan.apply(states, decay, s0)
 
 
 def arma_fit(y, init, p: int, q: int, steps: int, lr: float):

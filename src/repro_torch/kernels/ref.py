@@ -18,24 +18,92 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, q_pos, k_pos, *, scale: float,
-                        causal: bool = True, window: int = 0):
-    """q: (B,H,S,hd); k/v: (B,Hkv,T,hd); q_pos: (B,S); k_pos: (B,T)."""
-    B, H, S, hd = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    g = H // Hkv
-    qg = q.reshape(B, Hkv, g, S, hd).float()
-    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) * scale
+def _prefill_mask(q_pos, k_pos, causal: bool, window: int):
+    """(B, S, T): the pairs the prefill kernel keeps."""
     kp, qp = k_pos[:, None, :], q_pos[:, :, None]
     mask = (kp >= 0) & (qp >= 0)
     if causal:
         mask &= kp <= qp
     if window:
         mask &= (qp - kp) < window
-    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    return mask
+
+
+def _group(x, Hkv: int):
+    """(B, H, S, d) -> (B, Hkv, g, S, d) fp32."""
+    B, H, S, d = x.shape
+    return x.reshape(B, Hkv, H // Hkv, S, d).float()
+
+
+def _masked_scores(q, k, mask, scale: float):
+    """(B, Hkv, g, S, T) fp32: the scaled scores, NEG_INF where masked."""
+    s = torch.einsum("bkgsd,bktd->bkgst", _group(q, k.shape[1]),
+                     k.float()) * scale
+    return s.masked_fill(~mask[:, None, None], NEG_INF)
+
+
+def flash_attention_ref(q, k, v, q_pos, k_pos, *, scale: float,
+                        causal: bool = True, window: int = 0):
+    """q: (B,H,S,hd); k/v: (B,Hkv,T,hd); q_pos: (B,S); k_pos: (B,T)."""
+    return _prefill_ref(q, k, v, q_pos, k_pos, scale, causal, window)[0]
+
+
+def flash_attention_lse_ref(q, k, v, q_pos, k_pos, *, scale: float,
+                            causal: bool = True, window: int = 0):
+    """``flash_attention_ref``'s output and each row's log-sum-exp (B,H,S)
+    fp32 of its scaled, masked scores; about NEG_INF for a row that keeps
+    no key (NEG_INF + log T rounds to NEG_INF)."""
+    return _prefill_ref(q, k, v, q_pos, k_pos, scale, causal, window,
+                        lse=True)
+
+
+def _prefill_ref(q, k, v, q_pos, k_pos, scale, causal, window, lse=False):
+    B, H, S, _ = q.shape
+    s = _masked_scores(q, k, _prefill_mask(q_pos, k_pos, causal, window),
+                       scale)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
-    return o.reshape(B, H, S, v.shape[-1]).to(q.dtype)
+    o = o.reshape(B, H, S, v.shape[-1]).to(q.dtype)
+    if not lse:
+        return o, None
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, q_pos, k_pos, *,
+                            scale: float, causal: bool = True,
+                            window: int = 0):
+    """The gradients (dq, dk, dv) of the prefill attention's output ``o``
+    given its gradient ``do`` (B,H,S,hd) and the forward's ``lse``
+    (B,H,S), from the explicit formulas (fp32, each in its input's
+    dtype)::
+
+        P  = exp(scale Q K^T - lse) on kept pairs, 0 on masked ones
+        dV = P^T dO     dP = dO V^T     D = rowsum(dO o O)
+        dS = P o (dP - D)     dQ = scale dS K     dK = scale dS^T Q
+
+    summed over each kv head's group of query heads.  The reference masks
+    with ``jnp.where``, so a masked score's gradient is 0; a row that
+    keeps no key (lse <= NEG_INF / 2) took mean(V): P = 1/T over every
+    key feeds dV, and its dS is 0.  This is the yardstick of the kernel
+    ``csrc/flash_attention_bwd.cuh``, which computes the same.
+    """
+    B, H, S, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    mask = _prefill_mask(q_pos, k_pos, causal, window)[:, None, None]
+    s = _masked_scores(q, k, mask[:, 0, 0], scale)
+    lse = lse.float().reshape(B, Hkv, H // Hkv, S, 1)
+    none = lse <= 0.5 * NEG_INF
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    p = torch.where(none, 1.0 / T, p)
+    dog = _group(do, Hkv)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, v.float())
+    dsum = (dog * _group(o, Hkv)).sum(-1, keepdim=True)
+    ds = torch.where(mask & ~none, p * (dp - dsum), 0.0)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.float()) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, _group(q, Hkv)) * scale
+    return (dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q, k, v, k_pos, cur_pos, *, scale: float,
@@ -70,6 +138,23 @@ def ssd_state_scan_ref(states, decay, s0):
         prev.append(carry)
         carry = carry * decay[:, i, :, None, None] + states[:, i]
     return torch.stack(prev, dim=1), carry
+
+
+def ssd_state_scan_bwd_ref(decay, prev, dprev, dfinal):
+    """The reverse recurrence of ``ssd_state_scan_ref``: with G_{c-1} =
+    dfinal, dstates_i = G_i, ddecay_i = sum_{p,n} G_i prev_i and G_{i-1} =
+    dprev_i + decay_i G_i (product and sum separate ops, which the CUDA
+    kernel repeats bit for bit); ds0 = G_{-1}.  decay (b,c,h), prev and
+    dprev (b,c,h,p,n), dfinal (b,h,p,n), fp32.  Returns (dstates,
+    ddecay, ds0)."""
+    g = dfinal
+    dstates, ddecay = [], []
+    for i in range(prev.shape[1] - 1, -1, -1):
+        dstates.append(g)
+        ddecay.append((g * prev[:, i]).sum(dim=(-2, -1)))
+        g = dprev[:, i] + decay[:, i, :, None, None] * g
+    return (torch.stack(dstates[::-1], dim=1), torch.stack(ddecay[::-1], 1),
+            g)
 
 
 def arma_residuals(y, c, phi, theta):

@@ -12,7 +12,8 @@ default, after checking that its weights fit the card's free memory
 (:func:`check_fits`: full-size DeepSeek-V3 does not fit one card, and
 the launcher says so instead of running out of memory midway);
 ``--smoke`` selects the reduced variant and ``--device cpu`` runs on the
-CPU.  Weights are random, drawn from a seeded generator.
+CPU.  Weights are random, drawn from a seeded generator.  It runs under
+``torch.inference_mode()``: serving builds no autograd graph.
 """
 from __future__ import annotations
 
@@ -90,7 +91,8 @@ def main(argv=None):
     reqs = make_requests(cfg, args.requests, max_new=args.max_new)
     for r in reqs:
         eng.submit(r)
-    eng.run()
+    with torch.inference_mode():
+        eng.run()
     for r in reqs:
         print(f"req {r.rid} [{r.tier}] ttft_step={r.ttft_step} "
               f"done_step={r.done_step} tokens={len(r.tokens)}")

@@ -12,6 +12,12 @@ same values: leaf ``layers.mixer.in_proj[i]`` becomes parameter
 their names.
 Every leaf must map onto exactly one parameter of the same shape, and
 every parameter must be covered.
+
+``params_to_reference(cfg, lm)`` is the inverse: the reference's nested
+tree of numpy arrays (fp32 for bf16 parameters, whose values widen
+exactly), layer leaves stacked again along their leading axis.  Passed
+the parameters' ``.grad`` instead (``grads=True``), it carries the
+gradients across under the same mapping.
 """
 from __future__ import annotations
 
@@ -80,3 +86,59 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping,
     if missing:
         raise KeyError(f"port parameters with no reference leaf: {missing}")
     return lm
+
+
+def _stack_of(name: str):
+    """(stack prefix, layer index, rest) of a port parameter name in a
+    stacked subtree, or None."""
+    for stack in STACKED:
+        if name.startswith(stack):
+            idx, rest = name[len(stack):].split(".", 1)
+            return stack, int(idx), rest
+    return None
+
+
+def reference_leaves(lm: nn.Module,
+                     grads: bool = False) -> Dict[str, np.ndarray]:
+    """The reference tree's leaves by dotted key path (``layers.mixer.
+    in_proj``), layer leaves stacked, as fp32 (bf16 widens exactly) or
+    native numpy arrays: ``lm``'s values, or its parameters' gradients
+    (``grads``; raises when one is missing)."""
+    flat: Dict[str, np.ndarray] = {}
+    stacked: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, p in lm.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"{name}: no gradient")
+        arr = t.detach().float().cpu().numpy()
+        where = _stack_of(name)
+        if where is None:
+            flat[name] = arr
+        else:
+            stack, i, rest = where
+            stacked.setdefault(stack + rest, {})[i] = arr
+    for key, layers in stacked.items():
+        flat[key] = np.stack([layers[i] for i in range(len(layers))])
+    return flat
+
+
+def params_to_reference(cfg: ModelConfig, lm: nn.Module,
+                        grads: bool = False) -> Dict[str, object]:
+    """The reference's parameter tree (nested dicts of numpy arrays) with
+    ``lm``'s values, or with its parameters' gradients (``grads``); bf16
+    leaves come back as fp32.  ``lm`` must be ``cfg``'s model: the same
+    parameter names and shapes."""
+    want = {n: tuple(p.shape) for n, p in
+            model_mod.module(cfg, torch.device("meta")).named_parameters()}
+    have = {n: tuple(p.shape) for n, p in lm.named_parameters()}
+    if want != have:
+        diff = sorted(set(want.items()) ^ set(have.items()))
+        raise ValueError(f"the model is not {cfg.name}'s: {diff[:4]}")
+    tree: Dict[str, object] = {}
+    for key, arr in reference_leaves(lm, grads).items():
+        node = tree
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return tree

@@ -21,7 +21,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Embedding, Norm, apply_mlp,
                                        apply_norm, embed_tokens,
                                        model_dtype, param)
-from repro_torch.models.transformer import layer_cache, stack_caches
+from repro_torch.models.transformer import (layer_cache, run_layer,
+                                            stack_caches)
 
 
 class EncBlock(nn.Module):
@@ -105,14 +106,16 @@ def encode(params: EncDec, frames, cfg: ModelConfig):
 
 
 def decoder_forward(params: EncDec, tokens, memory, cfg: ModelConfig, *,
-                    return_cache: bool = False):
+                    return_cache: bool = False, remat: bool = False):
     """Causal decoder over ``tokens`` with cross-attention on ``memory``.
-    Returns (hidden, self-attention cache stacked over layers or None)."""
+    Returns (hidden, self-attention cache stacked over layers or None).
+    ``remat``: each decoder layer is recomputed in the backward pass (the
+    reference's remat covers the decoder stack, not the encoder)."""
     B, S = tokens.shape
     pos = _positions(B, S, tokens.device)
     x = embed_tokens(params.embed, tokens, cfg, positions=pos)
-    caches = []
-    for blk in params.dec_layers:
+
+    def step(blk, x, memory):
         a, c = attn.attention_forward(blk.self_attn,
                                       apply_norm(blk.norm1, x, cfg), cfg,
                                       pos, return_cache=return_cache)
@@ -121,7 +124,11 @@ def decoder_forward(params: EncDec, tokens, memory, cfg: ModelConfig, *,
                                       apply_norm(blk.norm_x, x, cfg), cfg,
                                       pos, causal=False, kv_x=memory)
         x = x + a
-        x = x + apply_mlp(blk.mlp, apply_norm(blk.norm2, x, cfg), cfg)
+        return x + apply_mlp(blk.mlp, apply_norm(blk.norm2, x, cfg), cfg), c
+
+    caches = []
+    for blk in params.dec_layers:
+        x, c = run_layer(step, blk, x, memory, remat=remat)
         caches.append(c)
     x = apply_norm(params.final_norm, x, cfg)
     return x, (stack_caches(caches) if return_cache else None)

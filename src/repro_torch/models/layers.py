@@ -4,8 +4,9 @@ Each parameter container is an ``nn.Module`` whose attribute names are
 the reference's param-tree keys (``scale``/``bias``, ``wi``/``wg``/``wo``,
 ``tok``/``head``/``pos``), with the reference's shapes: weights are
 (in, out) and applied as ``x @ w``.  The ``apply_*`` functions are plain
-functions on tensors, as in the reference.  Parameters do not require
-grad: this slice serves.
+functions on tensors, as in the reference.  Parameters are built
+frozen (``requires_grad`` False), so serving builds no graph; training
+(``train.loop``) unfreezes them.
 """
 from __future__ import annotations
 

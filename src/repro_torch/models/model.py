@@ -22,6 +22,15 @@ Decode caches, built by ``init_decode_cache`` and updated in place by
 ``params`` is the :class:`~repro_torch.models.transformer.LM` (or, for
 audio, :class:`~repro_torch.models.encdec.EncDec`) built by :func:`init`
 or by ``convert.params_from_reference``.
+
+``forward`` is differentiable: training (``loss_fn``) sets the
+parameters' ``requires_grad`` and backpropagates through it, the
+kernels included (``kernels.ops``).  Serving builds no graph: the
+parameters are frozen as built, and the engine and the serve launcher
+run under ``torch.inference_mode()``.  ``remat`` recomputes each
+layer in the backward pass instead of keeping its activations
+(``torch.utils.checkpoint``, one layer per checkpoint), as the
+reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -66,17 +75,21 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: nn.Module, batch: Dict, *,
-            return_cache: bool = False, window: Optional[int] = None):
+            return_cache: bool = False, remat: bool = False,
+            window: Optional[int] = None):
     """Returns (logits (B, S, padded_vocab), cache or None, aux_loss);
     aux_loss is the MoE layers' load-balance loss (0.0 without
-    experts)."""
+    experts).  An audio model's frames are cast to the model dtype first
+    (the reference runs fp32 frames through its bf16 encoder in fp32;
+    torch's products do not mix the two)."""
     tokens = batch["tokens"]
     if cfg.family == "audio":
-        memory = encdec_mod.encode(params, batch["frames"], cfg)
+        memory = encdec_mod.encode(params,
+                                   batch["frames"].to(model_dtype(cfg)), cfg)
         h, cache = encdec_mod.decoder_forward(params, tokens, memory, cfg,
-                                              return_cache=return_cache)
+                                              return_cache=return_cache,
+                                              remat=remat)
         if return_cache:
             cache = {"self": cache,
                      "cross": encdec_mod.build_cross_cache(params, memory,
@@ -95,11 +108,30 @@ def forward(cfg: ModelConfig, params: nn.Module, batch: Dict, *,
     backbone = (tfm.ssm_backbone_forward if tfm.is_ssm(cfg)
                 else tfm.backbone_forward)
     h, cache, aux = backbone(params, x, cfg, positions, window=window,
-                             return_cache=return_cache)
+                             return_cache=return_cache, remat=remat)
     return lm_head(params.embed, h, cfg), cache, aux
 
 
-@torch.no_grad()
+def lm_loss(cfg: ModelConfig, logits, batch: Dict) -> torch.Tensor:
+    """Next-token cross-entropy in fp32 over the padded vocabulary, as the
+    reference computes it; a VLM's text positions only."""
+    tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        logits = logits[:, batch["patches"].shape[1]:, :]
+    lg = logits[:, :-1, :].float()
+    tg = tokens[:, 1:].long()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, tg[..., None])[..., 0]
+    return torch.mean(lse - picked)
+
+
+def loss_fn(cfg: ModelConfig, params: nn.Module, batch: Dict, *,
+            remat: bool = False) -> torch.Tensor:
+    """The training loss: ``lm_loss`` plus the MoE aux loss."""
+    logits, _, aux = forward(cfg, params, batch, remat=remat)
+    return lm_loss(cfg, logits, batch) + aux
+
+
 def decode_step(cfg: ModelConfig, params: nn.Module, tokens, cache, cur_pos,
                 *, window: Optional[int] = None):
     """tokens: (B, 1); cur_pos: (B,).  Returns (logits, cache), the cache

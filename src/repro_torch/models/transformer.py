@@ -7,7 +7,11 @@ indexed (decode) along the same leading axis, leaf by leaf under each
 layer cache's own names (``k``/``v``/``pos``, MLA's ``ckv``/``krope``/
 ``pos``).  A MoE model runs its ``num_dense_layers`` dense blocks, then
 its MoE blocks.  The hybrid (Zamba2) applies one weight-shared attention
-block after every ``attn_every`` SSM layers.
+block after every ``attn_every`` SSM layers.  With ``remat`` each layer
+of a stack runs under ``torch.utils.checkpoint`` (non-reentrant, one
+layer per checkpoint: the reference's ``jax.checkpoint`` with
+``nothing_saveable`` over its scanned stacks); the hybrid's shared
+block, outside the reference's scans, is not recomputed.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -50,6 +55,13 @@ class SSMBlock(nn.Module):
 
 def is_ssm(cfg: ModelConfig) -> bool:
     return cfg.family in ("ssm", "hybrid")
+
+
+def run_layer(fn, *args, remat: bool = False):
+    """fn(*args), recomputed in the backward pass when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def layer_counts(cfg: ModelConfig):
@@ -161,7 +173,7 @@ def layer_cache(stack: Dict, i: int) -> Dict:
 
 def backbone_forward(params: LM, x, cfg: ModelConfig, positions, *,
                      window: Optional[int] = None,
-                     return_cache: bool = False):
+                     return_cache: bool = False, remat: bool = False):
     """x: (B, S, D) embeddings -> (hidden, cache or None, aux_loss).
 
     The cache is ``{"dense": ..., "moe": ...}`` (the stacks present);
@@ -170,11 +182,15 @@ def backbone_forward(params: LM, x, cfg: ModelConfig, positions, *,
     caches: Dict[str, Dict] = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
         if cfg.num_experts else 0.0
+
+    def step(blk, h):
+        return apply_block(blk, h, cfg, positions, window=window,
+                           return_cache=return_cache)
+
     for key, blocks in stacks(params):
         layer = []
         for blk in blocks:
-            x, c, aux = apply_block(blk, x, cfg, positions, window=window,
-                                    return_cache=return_cache)
+            x, c, aux = run_layer(step, blk, x, remat=remat)
             aux_total = aux_total + aux
             layer.append(c)
         if return_cache:
@@ -220,7 +236,7 @@ def _hybrid_groups(cfg: ModelConfig):
 
 
 def ssm_backbone_forward(params: LM, x, cfg: ModelConfig, positions, *,
-                         return_cache: bool = False,
+                         return_cache: bool = False, remat: bool = False,
                          window: Optional[int] = None):
     """x: (B, S, D) embeddings -> (hidden, cache or None, aux_loss).
 
@@ -228,10 +244,13 @@ def ssm_backbone_forward(params: LM, x, cfg: ModelConfig, positions, *,
     layers and, for the hybrid, ``"attn": {"k", "v", "pos"}`` stacked
     over the groups.
     """
+    def step(blk, h):
+        return apply_ssm_block(blk, h, cfg, return_cache=return_cache)
+
     ssm_caches, attn_caches = [], []
     for lo, hi in _hybrid_groups(cfg):
         for blk in params.layers[lo:hi]:
-            x, c = apply_ssm_block(blk, x, cfg, return_cache=return_cache)
+            x, c = run_layer(step, blk, x, remat=remat)
             ssm_caches.append(c)
         if cfg.attn_every:
             x, c, _ = apply_block(params.shared_attn, x, cfg, positions,

@@ -15,7 +15,7 @@ zero patch embeddings, and its decode positions start after them; an
 audio prompt is decoded against encoder_seq zero frames (the stubbed
 front ends of the reference's engine).  The engine
 runs on CUDA unless the caller passes ``device="cpu"``; the cache is
-updated in place.
+updated in place.  Every step runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -148,9 +148,11 @@ class ServingEngine:
         st.pos = 0
         st.remaining = 0
 
+    @torch.inference_mode()
     def step(self) -> None:
         """One engine iteration: admit waiting requests, decode one token
-        for every active slot."""
+        for every active slot.  Runs under ``torch.inference_mode()``: no
+        graph is built, whether or not the parameters require grad."""
         self.step_count += 1
         self._admit()
         if self.active == 0:

@@ -545,3 +545,242 @@ def test_bucket_step_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="227 KB"):
         tbs.bucket_segment(big, z(big.NC), z(1, big.K), z(1, big.F),
                            z(1, big.X), 0, 1)
+
+
+# ---------------------------------------------------------------- backward
+#: K2's backward against its plain version: fp32 1e-4 (both fp32, the
+#: sums over up to a few thousand keys or rows in other orders), bf16 3e-2
+#: (outputs rounded once to bf16 on both sides, one ulp at magnitudes up
+#: to 4)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd, masked=False):
+    q = randn(dev, (B, S, H, hd), dtype, 21).transpose(1, 2)
+    k = randn(dev, (B, T, Hkv, hd), dtype, 22).transpose(1, 2)
+    v = randn(dev, (B, T, Hkv, hd), dtype, 23).transpose(1, 2)
+    qpos = (torch.arange(S, device=dev, dtype=torch.int32)
+            + max(T - S, 0)).repeat(B, 1)
+    kpos = torch.arange(T, device=dev, dtype=torch.int32).repeat(B, 1)
+    if masked:   # padding rows, and a gap of keys no windowed row sees past
+        qpos[0, : max(S // 8, 1)] = -1
+        kpos[-1, T // 4: 3 * T // 4] = -1
+    return q, k, v, qpos, kpos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,S,T,hd,causal,window,masked", [
+    (1, 36, 4, 300, 300, 128, True, 0, False),    # StarCoder2 widths, g 9
+    (2, 8, 2, 37, 53, 32, True, 16, False),       # S != T, windowed
+    (1, 8, 8, 130, 130, 256, True, 0, False),     # Gemma: hd 256, g 1
+    (2, 4, 4, 70, 70, 64, True, 0, False),
+    (1, 8, 8, 133, 133, 112, True, 0, False),     # Zamba2's shared block
+    (1, 4, 2, 100, 100, 160, True, 0, False),
+    (1, 8, 8, 97, 97, 192, True, 0, False),       # MLA's hd 192
+    (2, 6, 6, 70, 150, 64, False, 0, False),      # cross: S != T
+    (1, 6, 6, 150, 150, 64, False, 0, False),     # bidirectional encoder
+    (2, 10, 2, 90, 90, 128, True, 16, True),      # fully masked rows, g 5
+    (1, 4, 1, 65, 65, 16, True, 0, False),        # hd 16, g 4
+])
+def test_flash_bwd_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd,
+                                        causal, window, masked):
+    """The kernel's (dq, dk, dv) against ``flash_attention_bwd_ref`` on
+    the same forward output and log-sum-exp (the kernel's own), and that
+    log-sum-exp against the plain version's."""
+    q, k, v, qpos, kpos = flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd,
+                                           masked)
+    opts = dict(scale=hd ** -0.5, causal=causal, window=window)
+    out, lse = tfa.flash_attention(q, k, v, qpos, kpos, return_lse=True,
+                                   **opts)
+    _, want_lse = tref.flash_attention_lse_ref(q, k, v, qpos, kpos, **opts)
+    dead = want_lse <= 0.5 * tref.NEG_INF
+    assert torch.equal(lse <= 0.5 * tref.NEG_INF, dead)
+    torch.testing.assert_close(lse[~dead], want_lse[~dead], atol=1e-3,
+                               rtol=1e-5)
+    do = randn(dev, (B, S, H, hd), dtype, 24).transpose(1, 2)
+    n = tfa.BWD_LAUNCHES
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos, **opts)
+    torch.cuda.synchronize()
+    assert tfa.BWD_LAUNCHES == n + 1
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse, do, qpos, kpos,
+                                        **opts)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_repeats_bit_identical_and_takes_strided_do(dev):
+    """No atomics: the same inputs give the same bits; a dO that is not
+    unit-stride along hd is copied into the layout the kernel reads."""
+    B, H, Hkv, S, hd = 2, 36, 4, 257, 128
+    q, k, v, qpos, kpos = flash_bwd_inputs(dev, "bfloat16", B, H, Hkv, S, S,
+                                           hd)
+    out, lse = tfa.flash_attention(q, k, v, qpos, kpos, scale=hd ** -0.5,
+                                   return_lse=True)
+    do = randn(dev, (B, S, H, hd), "bfloat16", 25).transpose(1, 2)
+    first = tfa.flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos,
+                                    scale=hd ** -0.5)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos,
+                                    scale=hd ** -0.5)
+    strided = do.transpose(2, 3).contiguous().transpose(2, 3)
+    other = tfa.flash_attention_bwd(q, k, v, out, lse, strided, qpos, kpos,
+                                    scale=hd ** -0.5)
+    for a, b, c in zip(first, again, other):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,S,T,vd", [
+    (True, 0, 150, 150, 0), (True, 32, 150, 150, 0), (False, 0, 40, 90, 0),
+    (True, 0, 120, 120, 128)])
+def test_flash_function_grads_match_autograd_of_plain(dev, dtype, causal,
+                                                      window, S, T, vd):
+    """``ops.flash_attention`` (K2 forward, K2 backward) against torch
+    autograd through the plain forward, on a loss of the output; ``vd``:
+    V zero-padded from vd to hd as the MLA prefill builds it, the
+    gradient leaving through the pad."""
+    from repro_torch.kernels import ops
+
+    B, H, Hkv, hd = 2, 8, 2, 192 if vd else 64
+    q0, k0, v0, qpos, kpos = flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd)
+    w = randn(dev, (B, S, H, vd or hd), dtype, 26).float()
+    opts = dict(scale=hd ** -0.5, causal=causal, window=window)
+
+    def run(fn):
+        q, k = (x.detach().requires_grad_() for x in (q0, k0))
+        vs = (v0[..., :vd] if vd else v0).detach().requires_grad_()
+        v = vs
+        if vd:
+            v = torch.zeros_like(v0)
+            v[..., :vd] = vs
+        out = fn(q, k, v, qpos, kpos, **opts).transpose(1, 2)
+        loss = (out[..., :vd or hd].float() * w).sum()
+        return torch.autograd.grad(loss, (q, k, vs))
+
+    n = (tfa.LAUNCHES, tfa.BWD_LAUNCHES)
+    got = run(ops.flash_attention)
+    assert (tfa.LAUNCHES, tfa.BWD_LAUNCHES) == (n[0] + 1, n[1] + 1)
+    want = run(tref.flash_attention_ref)
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g.float(), x.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+
+
+def scan_bwd_inputs(dev, b, c, h, p, n, decay="uniform"):
+    gen = torch.Generator(device=dev).manual_seed(31)
+    dec = torch.rand((b, c, 2, h), generator=gen, device=dev)[:, :, -1]
+    if decay != "uniform":
+        dec.fill_(0.0 if decay == "zero" else 1.0)
+    prev = torch.randn((b, c, h, p, n), generator=gen, device=dev)
+    dprev = torch.randn((b, c, h, p, n), generator=gen, device=dev)
+    dfin = torch.randn((b, h, p, n), generator=gen, device=dev)
+    return dec, prev, dprev, dfin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,p,n,decay", [
+    (1, 8, 112, 64, 64, "uniform"),   # Zamba2 prefill
+    (4, 8, 32, 64, 128, "uniform"),   # Mamba2-370M at B = 4, S = 2048
+    (2, 1, 112, 64, 64, "uniform"),   # one chunk
+    (1, 33, 32, 64, 128, "uniform"),
+    (1, 8, 112, 64, 64, "zero"),
+    (1, 8, 112, 64, 64, "one"),
+    (2, 3, 4, 16, 32, "uniform"),     # the smoke configs' tile
+])
+def test_ssd_scan_bwd_kernel_matches_plain(dev, b, c, h, p, n, decay):
+    """dstates and ds0 bit for bit; ddecay, a sum over p*n elements in
+    another order, within 1e-5 of the sum of its terms' magnitudes."""
+    dec, prev, dprev, dfin = scan_bwd_inputs(dev, b, c, h, p, n, decay)
+    k = tssd.BWD_LAUNCHES
+    got = tssd.ssd_state_scan_bwd(dec, prev, dprev, dfin)
+    torch.cuda.synchronize()
+    assert tssd.BWD_LAUNCHES == k + 1
+    want = tref.ssd_state_scan_bwd_ref(dec, prev, dprev, dfin)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    mag = (want[0].abs() * prev.abs()).sum(dim=(-2, -1))
+    assert torch.all((got[1] - want[1]).abs() <= 1e-5 * mag + 1e-6)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_function_grads_match_autograd_of_plain(dev):
+    """``ops.ssd_state_scan`` (K3 and its reverse scan) against torch
+    autograd through the plain recurrence; decay a strided view as the
+    model passes it."""
+    from repro_torch.kernels import ops
+
+    b, c, h, p, n = 2, 5, 8, 16, 32
+    gen = torch.Generator(device=dev).manual_seed(32)
+    st0 = torch.randn((b, c, h, p, n), generator=gen, device=dev)
+    dec0 = torch.rand((b, c, 2, h), generator=gen, device=dev)
+    s00 = torch.randn((b, h, p, n), generator=gen, device=dev)
+    wp = torch.randn((b, c, h, p, n), generator=gen, device=dev)
+    wf = torch.randn((b, h, p, n), generator=gen, device=dev)
+
+    def run(fn):
+        st, dec, s0 = (x.clone().requires_grad_() for x in (st0, dec0, s00))
+        prev, fin = fn(st, dec[:, :, -1], s0)
+        loss = (prev * wp).sum() + (fin * wf).sum()
+        return torch.autograd.grad(loss, (st, dec, s0))
+
+    k = (tssd.LAUNCHES, tssd.BWD_LAUNCHES)
+    got = run(ops.ssd_state_scan)
+    assert (tssd.LAUNCHES, tssd.BWD_LAUNCHES) == (k[0] + 1, k[1] + 1)
+    want = run(tref.ssd_state_scan_ref)
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g, x, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "zamba2-7b", "whisper-tiny",
+                                  "llama4-scout-17b-a16e", "deepseek-v3-671b"])
+def test_train_loss_and_grads_on_card_match_cpu(dev, arch):
+    """``model.loss_fn`` and its gradients in fp32 on the card (K2, K3 and
+    their backward kernels, each layer recomputed) against the CPU (the
+    plain versions, no recompute) on the same weights and batch: loss
+    rel 1e-5, each gradient leaf rel L2 1e-4 (the CPU parity tests'
+    bounds against JAX).  MLA at the full model's widths (K2 at hd 192),
+    MoE at a capacity that drops nothing."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
+                              dtype="float32", capacity_factor=8.0)
+    if cfg.use_mla:
+        cfg = dataclasses.replace(cfg, mla=get_arch(arch).mla)
+    lm = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(SyntheticLM(cfg, DataConfig(batch_size=2,
+                                             seq_len=64)).batches(1))
+    out = {}
+    for where, remat in (("cpu", False), ("cuda", True)):
+        params = lm.to(where)
+        params.requires_grad_(True)
+        n = (tfa.BWD_LAUNCHES, tssd.BWD_LAUNCHES)
+        loss = model.loss_fn(cfg, params, loop.batch_to(batch, where),
+                             remat=remat)
+        loss.backward()
+        launched = (tfa.BWD_LAUNCHES - n[0], tssd.BWD_LAUNCHES - n[1])
+        assert (sum(launched) == 0) == (where == "cpu")
+        out[where] = (loss.item(), {k: p.grad.cpu() for k, p in
+                                    params.named_parameters()})
+        for p in params.parameters():
+            p.grad = None
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k, g in gc.items():
+        assert float((gg[k] - g).norm()) <= 1e-4 * max(float(g.norm()),
+                                                       1e-30), k
+
+
+@pytest.mark.cuda
+def test_train_cli_on_card(dev, capsys):
+    """``python -m repro_torch.launch.train`` on its default device (the
+    card), reduced Gemma-7B, 10 steps: the loss falls."""
+    from repro_torch.launch import train as train_cli
+
+    assert train_cli.main(["--arch", "gemma-7b", "--steps", "10"]) == 0
+    assert "(improved)" in capsys.readouterr().out

@@ -24,6 +24,10 @@ def test_imports_with_jax_and_repro_blocked():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "for name in ('repro_torch.train', 'repro_torch.data',\n"
+        "             'repro_torch.launch.train', 'repro_torch.train.loop',\n"
+        "             'repro_torch.data.pipeline'):\n"
+        "    assert name in names, name\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
         "             and sys.modules[m] is not None)\n"
