@@ -29,12 +29,15 @@ which must pass for the run to exit 0:
    ``ref.ssd_state_scan_bwd_ref``) at every one of those K2 and K3
    shapes: K2's in bf16 and fp32, from its own forward output and
    log-sum-exp (held to the plain version's too), K3's dstates and ds0
-   bit for bit and ddecay to ``DDECAY_RTOL``.  Then each is timed at
+   bit for bit and ddecay to ``DDECAY_RTOL``; each K2 shape is logged
+   with the route its backward took (``wgmma``: bf16 at head dims up to
+   128; ``fma``: fp32, and bf16 at 160-256).  Then each is timed at
    the served shapes beside its bound, its plain version and, for
    attention, ``scaled_dot_product_attention`` (timed only; the port
    never calls it; no single PyTorch call computes K3's scan); the
    backward kernels at the trained shapes, K2's beside the autograd
-   backward of ``scaled_dot_product_attention`` (timed only);
+   backward of ``scaled_dot_product_attention`` (timed only), with each
+   of its kernels' device time;
 4. serve: StarCoder2-7B (dense), Zamba2-7B (hybrid: 81 Mamba2 layers
    and a shared attention block after every 6), Mamba2-370M (pure SSM),
    Llama-4 Scout (MoE, 16 experts top-1 and a shared one; 8 of 48
@@ -196,8 +199,12 @@ DDECAY_RTOL = 1e-5
 SERVE_LOGIT_TOL = 3e-2
 FP32_LOGIT_TOL = 1e-3
 PROFILED_CALL = 2        # which prefill and which decode call to profile
+#: K2's backward kernels: the tensor-core route (bf16, hd <= 128), then
+#: the scalar one (fp32, and bf16 at hd 160-256)
+BWD_KERNELS = ("bwd_prep", "bwd_deadsum", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
+               "bwd_dsum", "bwd_dkdv", "bwd_dq")
 PORT_KERNELS = ("flash_fwd_wgmma", "flash_fwd", "decode_split_mma",
-                "decode_split", "decode_combine", "ssd_scan")
+                "decode_split", "decode_combine", "ssd_scan") + BWD_KERNELS
 SPIN_CYCLES = 4_000_000  # ~2 ms at H100 clocks: longer than any call's host time
 # The ARMA fit (phase 6): the lt-ua+plan stack of benchmarks/common.py
 # (stack_spec(BenchSpec(), "lt-ua+plan")), written out: that module
@@ -337,14 +344,22 @@ def ranged(name: str, fn):
     return wrapper
 
 
-def profiled(label: str, fn, ranges=None):
+def kernel_name(key: str) -> str:
+    """A kernel's name and template arguments out of its profiler key."""
+    m = re.search(r"(\w+)(<[^<>]*>)?\(", key)
+    return "".join(m.groups("")) if m else key[:40]
+
+
+def profiled(label: str, fn, ranges=None, shares=None):
     """Run fn once under torch.profiler and print where its device time
     went: wall time (inflated by the profiler), device-busy share, the
     kernels with the most self device time and the port's own kernels,
     the host ops with the most self CPU time and, for each of
     ``ranges`` (name: the (module of ``repro_torch.models``, function)
     pairs run inside a range of that name), the device time of the
-    kernels launched inside it and its share of the busy time."""
+    kernels launched inside it and its share of the busy time; for each
+    of ``shares`` (name: kernel names), those kernels' device time and
+    share of the busy time."""
     import importlib
 
     from torch.autograd import DeviceType
@@ -392,7 +407,36 @@ def profiled(label: str, fn, ranges=None):
             else "device time not measured (no kernels attributed)"
         log(f"    range {name}: {sum(e.count for e in hits)} calls, their "
             f"kernels {ms:.3f} ms, {share}")
+    for name, kernels in (shares or {}).items():
+        hit = [r for r in rows if any(k in r[2] for k in kernels)]
+        if not hit:
+            continue
+        ms = sum(r[0] for r in hit)
+        log(f"    {name}: {ms:.3f} ms, {ms / busy:.1%} of the busy time, "
+            f"{sum(r[1] for r in hit)} launches ("
+            + ", ".join(f"{kernel_name(key)} {t:.3f} ms x{n}"
+                        for t, n, key in hit) + ")")
     return out
+
+
+def bwd_kernel_times(fn) -> dict:
+    """The device time (ms) of each kernel that one call of fn launches,
+    from torch.profiler, in K2's backward's launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {kernel_name(e.key): e.self_device_time_total / 1e3
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0}
+    order = {k: i for i, k in enumerate(BWD_KERNELS)}
+    return dict(sorted(times.items(), key=lambda kv: order.get(
+        kv[0].split("<")[0], len(order))))
 
 
 # ---------------------------------------------------------------- kernels
@@ -589,12 +633,20 @@ def check_kernels(dev):
     return errs
 
 
+def expected_bwd_route(dtype, hd: int) -> str:
+    """The kernels K2's backward must take: the tensor cores for bf16 at
+    head dims up to 128, the scalar FMA kernels for fp32 (never TF32) and
+    for bf16 at 160, 192 and 256."""
+    return "wgmma" if dtype == torch.bfloat16 and hd <= 128 else "fma"
+
+
 def check_backward(dev, errs):
     """The two backward kernels against their plain versions: K2's at
     every shape of ``FLASH_CASES`` in bf16 and fp32 (dq, dk, dv from the
     kernel's own forward output and log-sum-exp, which is also held to
     the plain version's, and a random dO laid out as the model's
-    gradient arrives: a transposed view), K3's at every shape of
+    gradient arrives: a transposed view), each logged with the route it
+    took, which must be ``expected_bwd_route``'s; K3's at every shape of
     ``SCAN_CASES`` (dstates and ds0 bit for bit, ddecay within
     ``DDECAY_RTOL`` of the sum of its terms' magnitudes)."""
     from repro_torch.kernels import flash_attention as fa
@@ -606,6 +658,11 @@ def check_backward(dev, errs):
     for dtype in (torch.bfloat16, torch.float32):
         tol = BWD_TOL[dtype]
         for label, kw in FLASH_CASES:
+            route = fa.bwd_route(dtype, kw["hd"])
+            if route != expected_bwd_route(dtype, kw["hd"]):
+                failed.append(f"flash_attention_bwd {dtype} {label}: route "
+                              f"{route}")
+            label = f"{label} [{route}]"
             args, opts = flash_case(dev, dtype, gen, **kw)
             out, lse = fa.flash_attention(*args, return_lse=True, **opts)
             _, want_lse = ref.flash_attention_lse_ref(*args, **opts)
@@ -787,7 +844,9 @@ def time_kernels(dev, errs):
         is the autograd backward of ``scaled_dot_product_attention`` at
         the same shape (timed only; the port never calls it).  Bound: 2.5
         times the forward's operations (S and dP recomputed, dV, dK, dQ);
-        bytes: q, k, v, o, dO and lse read once, dq, dk, dv written."""
+        bytes: q, k, v, o, dO and lse read once, dq, dk, dv written.
+        Logged with its route, and the device time of each of its kernels
+        (one call under the profiler)."""
         T = T or S
         args, opts = flash_case(dev, bf16, gen, B, H, Hkv, S, T, hd,
                                 causal=causal)
@@ -808,12 +867,14 @@ def time_kernels(dev, errs):
             lq, lk, lv, is_causal=causal, scale=opts["scale"],
             enable_gqa=True)
         kept = S * (S + 1) // 2 if causal else S * T
+        route = fa.bwd_route(bf16, hd)
+        grads = (q, k, v, out, lse, do, qpos, kpos)
+        extra = dict(bwd_route=route, kernels=bwd_kernel_times(
+            lambda: fa.flash_attention_bwd(*grads, **opts)))
         cases.append(dict(
             name="flash_attention_bwd", dtype=bf16,
-            fn=lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, qpos,
-                                              kpos, **opts),
-            plain=lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                                      qpos, kpos, **opts),
+            fn=lambda: fa.flash_attention_bwd(*grads, **opts),
+            plain=lambda: ref.flash_attention_bwd_ref(*grads, **opts),
             library=lambda: torch.autograd.grad(
                 lout, (lq, lk, lv), do[..., :vd], retain_graph=True),
             flops=5 * B * H * (hd + vd) * kept,
@@ -822,9 +883,12 @@ def time_kernels(dev, errs):
             shape=f"{label}: B={B} H={H} Hkv={Hkv} S={S} T={T} hd={hd}"
                   + (f" (V {vd}, zero-padded to {hd}; bound unpadded)"
                      if vd < hd else "")
-                  + f" bf16 {'causal' if causal else 'every pair kept'}",
-            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cuh",
-            replaces="src/repro/models/attention.py:118"))
+                  + f" bf16 {'causal' if causal else 'every pair kept'}"
+                  + f", {route} route",
+            source="src/repro_torch/kernels/csrc/"
+                   + ("flash_attention_bwd_wgmma.cuh" if route == "wgmma"
+                      else "flash_attention_bwd.cuh"),
+            replaces="src/repro/models/attention.py:118", extra=extra))
 
     def decode_row(label, B, H, Hkv, T, hd, cur):
         """K1 at B slots of a T-slot cache filled to ragged lengths."""
@@ -913,7 +977,7 @@ def time_kernels(dev, errs):
         timed = dict(ms=t_kernel, plain_ms=t_plain,
                      bound_ms=max(t_ops, t_bytes),
                      bound_by="operations" if t_ops >= t_bytes else "bytes",
-                     library_ms=t_lib, shape=r["shape"])
+                     library_ms=t_lib, shape=r["shape"], **r.get("extra", {}))
         if r["name"] in rows:
             rows[r["name"]]["other_shapes"].append(timed)
         else:
@@ -925,6 +989,9 @@ def time_kernels(dev, errs):
         log(f"  {r['name']:16s} {r['shape']}: kernel {t_kernel:.4f} ms, "
             f"plain {t_plain:.4f} ms, library {lib}, bound "
             f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})")
+        if "kernels" in timed:
+            log("    its kernels, one call under the profiler: " + ", ".join(
+                f"{name} {ms:.4f} ms" for name, ms in timed["kernels"].items()))
     del flush
     return list(rows.values())
 
@@ -1315,7 +1382,9 @@ def train_run(dev, arch, cut, batch, seq, steps, remat, lr):
         def timed(params, state, batch_):
             if len(stats) == PROFILED_STEP:
                 out = profiled(f"training step {PROFILED_STEP}",
-                               lambda: step(params, state, batch_))
+                               lambda: step(params, state, batch_),
+                               shares={"K2 backward": BWD_KERNELS,
+                                       "K2 forward": ("flash_fwd",)})
                 stats.append(dict(s=None, loss=float(out[2]["loss"]),
                                   gnorm=float(out[2]["grad_norm"])))
                 return out
@@ -2096,11 +2165,14 @@ def main() -> int:
                 log(f"    {n} bytes spilled by {fn}")
         # the Hopper kernels one by one: <head dim> registers
         found = re.findall(r"Compiling entry function '\S*?(flash_fwd_wgmma|"
-                           r"decode_split_mma)ILi(\d+)E\S*'[\s\S]*?Used "
-                           r"(\d+) registers", text)
+                           r"decode_split_mma|bwd_dkdv_wgmma|bwd_dq_wgmma)"
+                           r"ILi(\d+)E\S*'[\s\S]*?Used (\d+) registers",
+                           text)
         if found:
             log("    " + ", ".join(f"{k}<{d}> {r}" for k, d, r in found)
                 + " registers")
+        for fn in re.findall(r"\(C7512\)[^']*'(\S+)'", text):
+            log(f"    wgmma serialized for lack of registers in {fn}")
 
     log("[kernels] kernel vs plain PyTorch version on the card")
     errs = check_kernels(dev)

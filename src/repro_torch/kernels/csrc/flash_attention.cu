@@ -570,73 +570,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 }  // namespace wg
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry
-// point query (no -lcuda at link time).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A tensor map of a (B, rows, heads, hd) bf16 view with element strides
-// (sb, srow, sh) and a unit-stride head dimension, as dims (hd, rows,
-// heads, B): 64-column boxes of box_rows rows, 128-byte swizzle, zero
-// fill out of bounds.  A size-1 dimension's stride is never used; it is
-// replaced by 16 bytes when TMA could not take it.
-bool make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
-              int B, long long srow, long long sh, long long sb,
-              int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const long long n[3] = {rows, heads, B}, st[3] = {srow, sh, sb};
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                        static_cast<cuuint64_t>(rows),
-                        static_cast<cuuint64_t>(heads),
-                        static_cast<cuuint64_t>(B)};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    const long long bytes = st[i] * 2;
-    strides[i] = (n[i] == 1 && (bytes <= 0 || bytes % 16))
-                     ? 16 : static_cast<cuuint64_t>(bytes);
-  }
-  cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HDP>
 cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   using TL = wg::Tile<HDP>;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, a.q, a.hd, a.S, a.H, a.B, a.sqs, a.sqh, a.sqb, wg::BM) ||
-      !make_map(&mk, a.k, a.hd, a.T, a.Hkv, a.B, a.skt, a.skh, a.skb,
-                TL::BN) ||
-      !make_map(&mv, a.v, a.hd, a.T, a.Hkv, a.B, a.svt, a.svh, a.svb,
-                TL::BN))
+  if (!hopper::make_map(&mq, a.q, a.hd, a.S, a.H, a.B, a.sqs, a.sqh, a.sqb,
+                        wg::BM) ||
+      !hopper::make_map(&mk, a.k, a.hd, a.T, a.Hkv, a.B, a.skt, a.skh,
+                        a.skb, TL::BN) ||
+      !hopper::make_map(&mv, a.v, a.hd, a.T, a.Hkv, a.B, a.svt, a.svh,
+                        a.svb, TL::BN))
     return cudaErrorInvalidValue;
   const size_t bytes = TL::smem_bytes((a.T + TL::BN - 1) / TL::BN);
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,7 +1,11 @@
-// Prefill flash attention backward for Hopper (sm_90a): the kernels,
-// included by flash_attention_bwd_f32.cu and flash_attention_bwd_bf16.cu,
-// which instantiate them for one input type each and export the plain C
-// entry point (two sources, so that the two halves build in parallel).
+// Prefill flash attention backward for Hopper (sm_90a): the scalar
+// kernels, included by flash_attention_bwd_f32.cu and
+// flash_attention_bwd_bf16.cu, which instantiate them for one input type
+// each and export the plain C entry point (two sources, so that the two
+// halves build in parallel).  fp32 inputs take these kernels at every
+// head dim (fp32 never runs on TF32); bf16 inputs take them at head dims
+// 160, 192 and 256, and the tensor-core kernels of
+// flash_attention_bwd_wgmma.cuh at 16 to 128.
 //
 // Replaces what the JAX package gets from XLA's autodiff of its jnp
 // attention, `_attend` / `blockwise_attention` in
@@ -39,12 +43,12 @@
 //
 // Bound.  5 products of 2*(kept pairs)*hd FLOPs (S and dP recomputed, dV,
 // dK, dQ): 2.5 times the forward's operations, against 989 TFLOP/s bf16
-// tensor cores on an H100 SXM; operations, not bytes, at every trained
-// shape.  This kernel runs on the fp32 CUDA cores (67 TFLOP/s peak) and
-// reads two shared-memory operands per FMA or so: it sits far under the
-// bound (21.8 ms against 0.196 ms at StarCoder2-7B's trained shape, B 2,
-// S = T = 2048, on an H100 80GB HBM3 at 700 W).  The step to it is the
-// forward's: wgmma products on TMA tiles.
+// tensor cores (67 TFLOP/s fp32 without them) on an H100 SXM; operations,
+// not bytes, at every trained shape.  These kernels run on the fp32 CUDA
+// cores and read two shared-memory operands per FMA or so: at
+// StarCoder2-7B's trained shape (B 2, S = T = 2048, hd 128) they took
+// 21.8 ms against a 0.196 ms bound on an H100 80GB HBM3 at 700 W, which
+// is why bf16 at hd <= 128 runs on the tensor cores instead.
 #pragma once
 
 #include "attention_common.cuh"
@@ -444,17 +448,16 @@ cudaError_t dispatch(const Args& a, cudaStream_t st) {
   }
 }
 
-// The C entry point's body for input type T (see the .cu files).
-template <typename T>
-int run_bwd(const void* q, const void* k, const void* v, const void* o,
-            const void* dout, const void* lse, void* dsum,
-            const void* q_pos, const void* k_pos, void* dq, void* dk,
-            void* dv, const long long* dims, const long long* strides,
-            float scale, int causal, int window, void* stream) {
-  Args a;
+// The arguments of the C entry point (see the .cu files), scratch aside.
+inline Args make_args(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const void* lse,
+                      const void* q_pos, const void* k_pos, void* dq,
+                      void* dk, void* dv, const long long* dims,
+                      const long long* strides, float scale, int causal,
+                      int window) {
+  Args a = {};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.lse = static_cast<const float*>(lse);
-  a.dsum = static_cast<float*>(dsum);
   a.qpos = static_cast<const int*>(q_pos);
   a.kpos = static_cast<const int*>(k_pos);
   a.dq = dq; a.dk = dk; a.dv = dv;
@@ -477,7 +480,7 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o,
   a.sqpb = st[24]; a.sqps = st[25];
   a.skpb = st[26]; a.skpt = st[27];
   a.scale = scale; a.causal = causal; a.window = window;
-  return static_cast<int>(dispatch<T>(a, static_cast<cudaStream_t>(stream)));
+  return a;
 }
 
 }  // namespace

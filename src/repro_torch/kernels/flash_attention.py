@@ -14,10 +14,13 @@ the plain version in ``ref``.
 
 Training: with ``return_lse`` the forward also writes each row's
 log-sum-exp, and :func:`flash_attention_bwd` launches the backward
-kernels of ``csrc/flash_attention_bwd.cuh`` on it (built as
-``flash_attention_bwd_f32.cu`` and ``flash_attention_bwd_bf16.cu``, one
-library per input type; ``ops`` wraps both directions in a
-``torch.autograd.Function``).
+kernels on it, built as ``flash_attention_bwd_f32.cu`` and
+``flash_attention_bwd_bf16.cu``, one library per input type: bf16 at
+head dims up to 128 runs on the tensor cores
+(``csrc/flash_attention_bwd_wgmma.cuh``), fp32 and bf16 at 160, 192 and
+256 on the scalar kernels of ``csrc/flash_attention_bwd.cuh``
+(:func:`bwd_route` says which).  ``ops`` wraps both directions in a
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -47,14 +50,30 @@ def _fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_fn(dtype: torch.dtype):
+def _bwd_lib(dtype: torch.dtype):
+    """The backward's library for ``dtype``: its entry point, the scratch
+    it needs and the route it takes per head dim."""
     name = "bf16" if dtype == torch.bfloat16 else "f32"
-    fn = _build.load(f"flash_attention_bwd_{name}").flash_attention_bwd
+    lib = _build.load(f"flash_attention_bwd_{name}")
+    fn = lib.flash_attention_bwd
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
         _build.INT64_PTR, _build.INT64_PTR, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    lib.flash_attention_bwd_scratch.argtypes = [ctypes.c_int,
+                                                _build.INT64_PTR]
+    lib.flash_attention_bwd_scratch.restype = ctypes.c_longlong
+    lib.flash_attention_bwd_route.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_bwd_route.restype = ctypes.c_int
+    return lib
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """Which backward kernels take ``dtype`` at head dim ``hd``: "wgmma"
+    (the tensor cores, bf16 up to 128) or "fma" (the scalar kernels)."""
+    route = _bwd_lib(dtype).flash_attention_bwd_route(_build.DTYPES[dtype],
+                                                      hd)
+    return "wgmma" if route == 1 else "fma"
 
 
 def _check_shapes(q, k, v):
@@ -147,8 +166,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, q_pos, k_pos, *, scale: float,
                      device=dev).transpose(1, 2)
     if B == 0 or S == 0 or T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     dims = _build.int64s((B, H, Hkv, S, T, hd))
+    lib = _bwd_lib(q.dtype)
+    code = _build.DTYPES[q.dtype]
+    scratch = torch.empty(lib.flash_attention_bwd_scratch(code, dims),
+                          dtype=torch.uint8, device=dev)
     strides = _build.int64s(
         (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
          *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
@@ -156,9 +178,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, q_pos, k_pos, *, scale: float,
          *k_pos.stride()))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _bwd_fn(q.dtype)(
-            _build.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+        err = lib.flash_attention_bwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             q_pos.data_ptr(), k_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dims, strides, float(scale), int(bool(causal)),
             int(window), stream)

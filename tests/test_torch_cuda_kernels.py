@@ -556,13 +556,18 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd, masked=False):
+    """``masked``: padding rows and a gap of keys no windowed row sees
+    past; ``"dead"``: five padding rows in the middle of the second query
+    tile of every sequence, whose other rows keep every key of the tile."""
     q = randn(dev, (B, S, H, hd), dtype, 21).transpose(1, 2)
     k = randn(dev, (B, T, Hkv, hd), dtype, 22).transpose(1, 2)
     v = randn(dev, (B, T, Hkv, hd), dtype, 23).transpose(1, 2)
     qpos = (torch.arange(S, device=dev, dtype=torch.int32)
             + max(T - S, 0)).repeat(B, 1)
     kpos = torch.arange(T, device=dev, dtype=torch.int32).repeat(B, 1)
-    if masked:   # padding rows, and a gap of keys no windowed row sees past
+    if masked == "dead":
+        qpos[:, 90:95] = -1
+    elif masked:
         qpos[0, : max(S // 8, 1)] = -1
         kpos[-1, T // 4: 3 * T // 4] = -1
     return q, k, v, qpos, kpos
@@ -582,12 +587,26 @@ def flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd, masked=False):
     (1, 6, 6, 150, 150, 64, False, 0, False),     # bidirectional encoder
     (2, 10, 2, 90, 90, 128, True, 16, True),      # fully masked rows, g 5
     (1, 4, 1, 65, 65, 16, True, 0, False),        # hd 16, g 4
+    (2, 36, 4, 2048, 2048, 128, True, 0, False),  # StarCoder2-7B trained
+    (1, 8, 2, 200, 333, 128, True, 0, False),     # T % 128 != 0, S != T
+    (2, 6, 6, 130, 333, 64, False, 0, False),     # cross, T % 128 != 0
+    (2, 10, 2, 90, 90, 64, True, 0, True),        # masked rows, hd 64, g 5
+    (1, 8, 2, 200, 333, 112, False, 0, "dead"),   # dead rows, hd 112, g 4
+    (1, 36, 4, 300, 300, 128, True, 40, False),   # window < one tile
+    (1, 8, 8, 200, 200, 112, False, 0, "dead"),   # dead rows, FULL tile
+    (2, 36, 4, 200, 200, 128, True, 0, "dead"),   # dead rows, g 9
+    (1, 40, 8, 200, 200, 128, True, 0, False),    # g 5
+    (1, 8, 8, 150, 150, 16, True, 0, False),      # hd 16, g 1
 ])
 def test_flash_bwd_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd,
                                         causal, window, masked):
     """The kernel's (dq, dk, dv) against ``flash_attention_bwd_ref`` on
     the same forward output and log-sum-exp (the kernel's own), and that
-    log-sum-exp against the plain version's."""
+    log-sum-exp against the plain version's.  The cases cover the tile
+    edges of the tensor-core kernels (bf16, hd <= 128: 64-key dK/dV
+    blocks over 64-row query tiles, 128-row dQ blocks over 64-key tiles):
+    ragged S and T, a window inside one tile, rows that kept no key inside
+    a tile every other row keeps whole, g 1, 4, 5 and 9."""
     q, k, v, qpos, kpos = flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd,
                                            masked)
     opts = dict(scale=hd ** -0.5, causal=causal, window=window)
@@ -613,10 +632,13 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd,
 
 
 @pytest.mark.cuda
-def test_flash_bwd_kernel_repeats_bit_identical_and_takes_strided_do(dev):
+@pytest.mark.parametrize("H,Hkv", [(36, 4), (8, 8)])
+def test_flash_bwd_kernel_repeats_bit_identical_and_takes_strided_do(
+        dev, H, Hkv):
     """No atomics: the same inputs give the same bits; a dO that is not
-    unit-stride along hd is copied into the layout the kernel reads."""
-    B, H, Hkv, S, hd = 2, 36, 4, 257, 128
+    unit-stride along hd is copied into the layout the kernel reads.  g 9
+    (a dK/dV block walks the group) and g 1."""
+    B, S, hd = 2, 257, 128
     q, k, v, qpos, kpos = flash_bwd_inputs(dev, "bfloat16", B, H, Hkv, S, S,
                                            hd)
     out, lse = tfa.flash_attention(q, k, v, qpos, kpos, scale=hd ** -0.5,
@@ -631,6 +653,16 @@ def test_flash_bwd_kernel_repeats_bit_identical_and_takes_strided_do(dev):
                                     scale=hd ** -0.5)
     for a, b, c in zip(first, again, other):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_routes_by_head_dim(dev):
+    """bf16 at head dims up to 128 takes the tensor-core kernels, at 160,
+    192 and 256 the scalar ones; fp32 always the scalar ones."""
+    for hd in tfa.HEAD_DIMS:
+        assert tfa.bwd_route(torch.bfloat16, hd) == (
+            "wgmma" if hd <= 128 else "fma")
+        assert tfa.bwd_route(torch.float32, hd) == "fma"
 
 
 @pytest.mark.cuda
