@@ -21,7 +21,10 @@ which must pass for the run to exit 0:
    encoder (S = T = 1500), its cross-attention (S != T) and its decode
    against the 1500-slot cross cache, a sliding window, fully masked
    rows, a q tile of padded and live rows, S and T off the 128-row
-   tiles, S < 64 and one query row; the SSD state scan (K3) in fp32 at
+   tiles, S < 64 and one query row, and V at its own head dim: MLA's
+   q/k 192 against V 128 (S = T = 1999, a ragged 333, fully masked
+   rows), Gemma-7B's causal hd 256 (H = Hkv = 16, S = T = 2048) and
+   hd 160 at g 4 (S = T = 2048); the SSD state scan (K3) in fp32 at
    Zamba2-7B's and Mamba2-370M's prefill shapes, one chunk, 33 chunks
    from a random state, decays all 0 and all 1, strided states and
    Mamba2-370M's trained shape (b = 4).  The two backward kernels
@@ -30,12 +33,13 @@ which must pass for the run to exit 0:
    shapes: K2's in bf16 and fp32, from its own forward output and
    log-sum-exp (held to the plain version's too), K3's dstates and ds0
    bit for bit and ddecay to ``DDECAY_RTOL``; each K2 shape is logged
-   with the route its backward took (``wgmma``: bf16 at head dims up to
-   128; ``fma``: fp32, and bf16 at 160-256).  Then each is timed at
+   with the route its backward took (``wgmma``: bf16 at every head dim;
+   ``fma``: fp32).  Then each is timed at
    the served shapes beside its bound, its plain version and, for
    attention, ``scaled_dot_product_attention`` (timed only; the port
    never calls it; no single PyTorch call computes K3's scan); the
-   backward kernels at the trained shapes, K2's beside the autograd
+   backward kernels at the trained shapes and at StableLM-12B's,
+   Gemma-7B's and DeepSeek-V3's MLA widths, K2's beside the autograd
    backward of ``scaled_dot_product_attention`` (timed only), with each
    of its kernels' device time;
 4. serve: StarCoder2-7B (dense), Zamba2-7B (hybrid: 81 Mamba2 layers
@@ -76,7 +80,10 @@ which must pass for the run to exit 0:
    (one profiled), the peak memory and the launches, which must match
    the trained work (K2 and K3 forward once per layer and again for the
    recompute, their backward once); every gradient must be present and
-   finite and the loss must fall.  Then one fp32 forward and backward
+   finite and the loss must fall.  DeepSeek-V3 at its 3 dense layers
+   (3.6 B parameters, a 43 GB state), B = 2, S = 2048, trains MLA through
+   K2 at q/k 192 and V 128, forward and backward.  Then one fp32 forward
+   and backward
    at full width and cut depth (``FP32_TRAIN``) through the kernels
    against the same with ``kernels.ops`` patched to the plain versions
    on the card: the loss and every gradient leaf;
@@ -199,8 +206,8 @@ DDECAY_RTOL = 1e-5
 SERVE_LOGIT_TOL = 3e-2
 FP32_LOGIT_TOL = 1e-3
 PROFILED_CALL = 2        # which prefill and which decode call to profile
-#: K2's backward kernels: the tensor-core route (bf16, hd <= 128), then
-#: the scalar one (fp32, and bf16 at hd 160-256)
+#: K2's backward kernels: the tensor-core route (bf16), then the scalar
+#: one (fp32)
 BWD_KERNELS = ("bwd_prep", "bwd_deadsum", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
                "bwd_dsum", "bwd_dkdv", "bwd_dq")
 PORT_KERNELS = ("flash_fwd_wgmma", "flash_fwd", "decode_split_mma",
@@ -445,14 +452,15 @@ def randn(dev, shape, dtype, gen):
 
 
 def flash_case(dev, dtype, gen, B, H, Hkv, S, T, hd, window=0,
-               masked=False, padded=False, causal=True):
+               masked=False, padded=False, causal=True, vd=None):
     """Inputs laid out as the model passes them: transposed views of
-    (B, S, H, hd) activations.  ``padded``: the first q tile of sequence
-    0 holds padding (q_pos -1) and live rows; ``causal=False``: every
-    pair kept (an encoder, cross-attention)."""
+    (B, S, H, hd) activations, V at its own head dim ``vd`` (hd by
+    default).  ``padded``: the first q tile of sequence 0 holds padding
+    (q_pos -1) and live rows; ``causal=False``: every pair kept (an
+    encoder, cross-attention)."""
     q = randn(dev, (B, S, H, hd), dtype, gen).transpose(1, 2)
     k = randn(dev, (B, T, Hkv, hd), dtype, gen).transpose(1, 2)
-    v = randn(dev, (B, T, Hkv, hd), dtype, gen).transpose(1, 2)
+    v = randn(dev, (B, T, Hkv, vd or hd), dtype, gen).transpose(1, 2)
     qpos = (torch.arange(S, device=dev, dtype=torch.int32)
             + max(T - S, 0)).repeat(B, 1)
     kpos = torch.arange(T, device=dev, dtype=torch.int32).repeat(B, 1)
@@ -544,6 +552,17 @@ FLASH_CASES = [
                                   hd=192, causal=False)),
     ("llama4 prefill g=5 S=T=700", dict(B=1, H=40, Hkv=8, S=700,
                                         T=700, hd=128)),
+    ("MLA 192/V 128 S=T=1999", dict(B=1, H=128, Hkv=128, S=1999, T=1999,
+                                    hd=192, vd=128)),
+    ("MLA 192/V 128 ragged S=T=333", dict(B=1, H=128, Hkv=128, S=333,
+                                          T=333, hd=192, vd=128)),
+    ("MLA 192/V 128 fully masked", dict(B=2, H=128, Hkv=128, S=200,
+                                        T=200, hd=192, vd=128, window=32,
+                                        masked=True)),
+    ("gemma-7b hd=256 S=T=2048", dict(B=1, H=16, Hkv=16, S=2048, T=2048,
+                                      hd=256)),
+    ("hd=160 g=4 S=T=2048", dict(B=1, H=32, Hkv=8, S=2048, T=2048,
+                                 hd=160)),
 ]
 #: K3's checked shapes (``scan_case`` arguments), forward and backward
 SCAN_CASES = [
@@ -635,9 +654,8 @@ def check_kernels(dev):
 
 def expected_bwd_route(dtype, hd: int) -> str:
     """The kernels K2's backward must take: the tensor cores for bf16 at
-    head dims up to 128, the scalar FMA kernels for fp32 (never TF32) and
-    for bf16 at 160, 192 and 256."""
-    return "wgmma" if dtype == torch.bfloat16 and hd <= 128 else "fma"
+    every head dim, the scalar FMA kernels for fp32 (never TF32)."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def check_backward(dev, errs):
@@ -646,7 +664,8 @@ def check_backward(dev, errs):
     kernel's own forward output and log-sum-exp, which is also held to
     the plain version's, and a random dO laid out as the model's
     gradient arrives: a transposed view), each logged with the route it
-    took, which must be ``expected_bwd_route``'s; K3's at every shape of
+    took, which must be ``expected_bwd_route``'s, and run twice: the
+    bits must repeat (no atomics); K3's at every shape of
     ``SCAN_CASES`` (dstates and ds0 bit for bit, ddecay within
     ``DDECAY_RTOL`` of the sum of its terms' magnitudes)."""
     from repro_torch.kernels import flash_attention as fa
@@ -676,6 +695,14 @@ def check_backward(dev, errs):
             q, k, v, qpos, kpos = args
             got = fa.flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos,
                                          **opts)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, qpos,
+                                           kpos, **opts)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not same:
+                failed.append(f"flash_attention_bwd {dtype} {label}: the "
+                              f"bits differ between two calls")
+            label = f"{label}, {'bits repeat' if same else 'BITS DIFFER'}"
+            del again
             want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, qpos,
                                                kpos, **opts)
             failed += report("flash_attention_bwd", label, dtype,
@@ -790,10 +817,11 @@ def time_kernels(dev, errs):
     and the bound computed from these inputs.  K2 and K1 are timed at
     StarCoder2-7B's widths (the row) and, in ``other_shapes``, at
     Zamba2-7B's hd = 112, Llama-4 Scout's and Pixtral-12B's widths,
-    DeepSeek-V3's MLA prefill (hd 192, V padded), Whisper-tiny's encoder,
+    DeepSeek-V3's MLA prefill (q/k 192, V 128), Whisper-tiny's encoder,
     cross-attention and decode; K3 at Zamba2-7B's prefill of 2000
-    tokens; the backward kernels at the trained shapes (``bwd_row``, K3's
-    at Mamba2-370M's B = 4, S = 2048)."""
+    tokens; the backward kernels at the trained shapes (``bwd_row``: also
+    StableLM-12B's hd 160 and Gemma-7B's hd 256; K3's at Mamba2-370M's
+    B = 4, S = 2048)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as dec
@@ -808,32 +836,25 @@ def time_kernels(dev, errs):
 
     def flash_row(label, B, H, Hkv, S, hd, T=None, causal=True, vd=None):
         """K2 at an S-token prompt (positions 0..S-1) over T keys: causal,
-        or with every pair kept.  ``vd``: V's own head dim, zero-padded
-        to hd for the kernel as the MLA prefill does; the bound and the
-        library call take the unpadded V."""
+        or with every pair kept.  ``vd``: V's own head dim (MLA's 128)."""
         T = T or S
         args, opts = flash_case(dev, bf16, gen, B, H, Hkv, S, T, hd,
-                                causal=causal)
+                                causal=causal, vd=vd)
         q, k, v, _, _ = args
         vd = vd or hd
-        if vd < hd:
-            v = v.clone()
-            v[..., vd:] = 0
-            args = (q, k, v) + args[3:]
         kept = S * (S + 1) // 2 if causal else S * T   # kept (q, k) pairs
         cases.append(dict(
             name="flash_attention", dtype=bf16,
             fn=lambda: fa.flash_attention(*args, **opts),
             plain=lambda: ref.flash_attention_ref(*args, **opts),
             library=lambda: F.scaled_dot_product_attention(
-                q, k, v[..., :vd], is_causal=causal, scale=opts["scale"],
+                q, k, v, is_causal=causal, scale=opts["scale"],
                 enable_gqa=True),
             flops=2 * B * H * (hd + vd) * kept,    # QK^T and PV
             bytes=(B * H * S * (hd + vd) + B * Hkv * T * (hd + vd)) * 2
             + B * (S + T) * 4,
             shape=f"{label}: B={B} H={H} Hkv={Hkv} S={S} T={T} hd={hd}"
-                  + (f" (V {vd}, zero-padded to {hd}; bound unpadded)"
-                     if vd < hd else "")
+                  + (f" V {vd}" if vd < hd else "")
                   + f" bf16 {'causal' if causal else 'every pair kept'}",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:26"))
@@ -842,27 +863,21 @@ def time_kernels(dev, errs):
         """K2's backward at K2's shapes: dq, dk, dv from the kernel's
         forward output and log-sum-exp and a random dO.  The library call
         is the autograd backward of ``scaled_dot_product_attention`` at
-        the same shape (timed only; the port never calls it).  Bound: 2.5
-        times the forward's operations (S and dP recomputed, dV, dK, dQ);
-        bytes: q, k, v, o, dO and lse read once, dq, dk, dv written.
-        Logged with its route, and the device time of each of its kernels
-        (one call under the profiler)."""
+        the same shape (timed only; the port never calls it).  Bound: 5
+        products (S and dP recomputed, dV, dK, dQ), S, dK and dQ over hd,
+        dP and dV over vd, V's own head dim; bytes: q, k, v, o, dO and lse
+        read once, dq, dk, dv written.  Logged with its route, and the
+        device time of each of its kernels (one call under the
+        profiler)."""
         T = T or S
         args, opts = flash_case(dev, bf16, gen, B, H, Hkv, S, T, hd,
-                                causal=causal)
+                                causal=causal, vd=vd)
         q, k, v, qpos, kpos = args
         vd = vd or hd
-        if vd < hd:
-            v = v.clone()
-            v[..., vd:] = 0
         out, lse = fa.flash_attention(q, k, v, qpos, kpos, return_lse=True,
                                       **opts)
-        do = randn(dev, (B, S, H, hd), bf16, gen).transpose(1, 2)
-        if vd < hd:
-            do = do.clone()
-            do[..., vd:] = 0
-        lq, lk, lv = (x.detach().requires_grad_() for x in
-                      (q, k, v[..., :vd]))
+        do = randn(dev, (B, S, H, vd), bf16, gen).transpose(1, 2)
+        lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
         lout = F.scaled_dot_product_attention(
             lq, lk, lv, is_causal=causal, scale=opts["scale"],
             enable_gqa=True)
@@ -876,13 +891,12 @@ def time_kernels(dev, errs):
             fn=lambda: fa.flash_attention_bwd(*grads, **opts),
             plain=lambda: ref.flash_attention_bwd_ref(*grads, **opts),
             library=lambda: torch.autograd.grad(
-                lout, (lq, lk, lv), do[..., :vd], retain_graph=True),
-            flops=5 * B * H * (hd + vd) * kept,
+                lout, (lq, lk, lv), do, retain_graph=True),
+            flops=2 * B * H * (3 * hd + 2 * vd) * kept,
             bytes=(2 * B * H * S * (hd + vd) + 2 * B * Hkv * T * (hd + vd))
             * 2 + B * H * S * 4 + B * (S + T) * 4,
             shape=f"{label}: B={B} H={H} Hkv={Hkv} S={S} T={T} hd={hd}"
-                  + (f" (V {vd}, zero-padded to {hd}; bound unpadded)"
-                     if vd < hd else "")
+                  + (f" V {vd}" if vd < hd else "")
                   + f" bf16 {'causal' if causal else 'every pair kept'}"
                   + f", {route} route",
             source="src/repro_torch/kernels/csrc/"
@@ -947,6 +961,8 @@ def time_kernels(dev, errs):
     bwd_row("starcoder2-7b train", 2, 36, 4, 2048, 128)
     bwd_row("zamba2-7b shared block", 1, 32, 32, 2000, 112)
     bwd_row("deepseek-v3-671b MLA", 1, 128, 128, 2000, 192, vd=128)
+    bwd_row("stablelm-12b", 1, 32, 8, 2048, 160)
+    bwd_row("gemma-7b", 1, 16, 16, 2048, 256)
     bwd_row("whisper-tiny encoder", 1, 6, 6, 1500, 64, causal=False)
     bwd_row("whisper-tiny cross", 1, 6, 6, 2000, 64, T=1500, causal=False)
 
@@ -1288,18 +1304,25 @@ def check_fp32_decode(dev, arch: str, seq, steps: int, bf16_gap) -> float:
 #: trained in turn through ``train.loop.train`` at full published width:
 #: StarCoder2-7B at 16 of its 32 layers (3.93 B parameters: bf16 weights
 #: and gradients and fp32 AdamW moments take 47.1 GB), Mamba2-370M
-#: whole.  AdamW's first step moves every weight by about lr (m/sqrt(v)
-#: is +-1): at StarCoder2-7B's width that swings the loss of step 1 from
-#: 11.4 to 18-25 for any peak from 3e-5 to 5e-4, and back by step 5 only
-#: some of the time; at 1e-5 it falls at once.  Mamba2-370M falls
-#: smoothly at 3e-4 (``scripts/torch_train_lr.py`` runs other peaks).
+#: whole, DeepSeek-V3 at its 3 dense layers (3.61 B, 43.3 GB; MLA
+#: through K2 at q/k 192 and V 128).  AdamW's first step moves every
+#: weight by about lr (m/sqrt(v) is +-1): at StarCoder2-7B's width that
+#: swings the loss of step 1 from 11.4 to 18-25 for any peak from 3e-5 to
+#: 5e-4, and back by step 5 only some of the time; at 1e-5 it falls at
+#: once.  DeepSeek-V3's swings from 12.2 to 14.8 at 3e-5 and 18.9 at
+#: 1e-4; at 1e-5 it falls at once (to 9.9 by step 5; 3e-6: 11.9).
+#: Mamba2-370M falls smoothly at 3e-4 (``scripts/torch_train_lr.py``
+#: runs other peaks).
 TRAINED = (("starcoder2-7b", dict(num_layers=16), 2, 2048, 6, True, 1e-5),
-           ("mamba2-370m", {}, 4, 2048, 6, True, 3e-4))
+           ("mamba2-370m", {}, 4, 2048, 6, True, 3e-4),
+           ("deepseek-v3-671b", dict(num_layers=3), 2, 2048, 6, True, 1e-5))
 PROFILED_STEP = 2        # which training step to profile
 #: the fp32 step, kernels against plain versions on the card: (arch,
 #: depth cut, batch, sequence length)
 FP32_TRAIN = (("starcoder2-7b", dict(num_layers=2), 1, 2048),
-              ("mamba2-370m", dict(num_layers=4), 2, 2048))
+              ("mamba2-370m", dict(num_layers=4), 2, 2048),
+              ("deepseek-v3-671b", dict(num_layers=1, num_dense_layers=1), 1,
+               2048))
 # fp32, kernels vs plain versions (both fp32, no TF32): loss rel 1e-5 and
 # each gradient leaf rel L2 1e-4, the CPU parity tests' bounds against
 # jax.value_and_grad (tests/test_torch_train.py)
@@ -2163,14 +2186,19 @@ def main() -> int:
                                 r"stores", text):
             if int(n):
                 log(f"    {n} bytes spilled by {fn}")
-        # the Hopper kernels one by one: <head dim> registers
-        found = re.findall(r"Compiling entry function '\S*?(flash_fwd_wgmma|"
-                           r"decode_split_mma|bwd_dkdv_wgmma|bwd_dq_wgmma)"
-                           r"ILi(\d+)E\S*'[\s\S]*?Used (\d+) registers",
-                           text)
+        # the Hopper kernels one by one: <padded head dims> registers and
+        # spill stores
+        found = [
+            (m[1], m[2] + (f",{m[3]}" if m[3] else ""), m[5],
+             (re.search(r"(\d+) bytes spill stores", m[4]) or [0, "0"])[1])
+            for m in re.finditer(
+                r"Compiling entry function '\S*?(flash_fwd_wgmma|"
+                r"decode_split_mma|bwd_dkdv_wgmma|bwd_dq_wgmma)"
+                r"ILi(\d+)E(?:Li(\d+)E)?\S*'([\s\S]*?)Used (\d+) registers",
+                text)]
         if found:
-            log("    " + ", ".join(f"{k}<{d}> {r}" for k, d, r in found)
-                + " registers")
+            log("    " + ", ".join(f"{k}<{d}> {r} registers, {n} bytes "
+                                   f"spilled" for k, d, r, n in found))
         for fn in re.findall(r"\(C7512\)[^']*'(\S+)'", text):
             log(f"    wgmma serialized for lack of registers in {fn}")
 

@@ -139,24 +139,29 @@ def rows_aligned(t: torch.Tensor) -> bool:
         (st * size) % 16 for n, st in zip(t.shape[:-1], t.stride()) if n > 1)
 
 
-def check_qkv(kernel: str, head_dims, **tensors: torch.Tensor) -> None:
+def check_qkv(kernel: str, pairs, qk: Dict[str, torch.Tensor],
+              v: Dict[str, torch.Tensor]) -> None:
     """Raise unless the tensors are what the attention kernels read: on a
-    CUDA device, one dtype of ``DTYPES``, one head dimension out of
-    ``head_dims``, unit-stride along it, and every row starting on a
-    16-byte boundary (rows are read as 16-byte vectors)."""
-    first = next(iter(tensors.values()))
-    for name, t in tensors.items():
+    CUDA device, one dtype of ``DTYPES``, unit-stride along the head
+    dimension, and every row starting on a 16-byte boundary (rows are read
+    as 16-byte vectors); the tensors of ``qk`` (name: tensor, the q/k
+    side) at one head dim hd, those of ``v`` (the V side: v, the output
+    and their gradients) at one hd_v, and (hd, hd_v) one of ``pairs``."""
+    first = next(iter(qk.values()))
+    for name, t in {**qk, **v}.items():
         if not t.is_cuda:
             raise ValueError(f"{kernel} kernel: {name} is on {t.device}, "
                              f"not a CUDA device")
         if t.dtype != first.dtype or t.dtype not in DTYPES:
             raise ValueError(f"{kernel} kernel: {name} has dtype {t.dtype};"
                              f" all must be float32 or bfloat16, alike")
-        if t.shape[-1] != first.shape[-1] or t.shape[-1] not in head_dims:
-            raise ValueError(f"{kernel} kernel: {name} has head_dim "
-                             f"{t.shape[-1]}; supported: {head_dims}, "
-                             f"equal for all")
         if not rows_aligned(t):
             raise ValueError(f"{kernel} kernel: {name} must have a "
                              f"unit-stride head dimension and 16-byte "
                              f"aligned rows (strides {t.stride()})")
+    dims = [{n: t.shape[-1] for n, t in side.items()} for side in (qk, v)]
+    pair = tuple(next(iter(d.values())) for d in dims)
+    if any(len(set(d.values())) > 1 for d in dims) or pair not in pairs:
+        raise ValueError(f"{kernel} kernel: head dims {dims[0]} (hd) and "
+                         f"{dims[1]} (hd_v); supported (hd, hd_v): "
+                         f"{tuple(pairs)}")

@@ -1,8 +1,10 @@
 // Prefill flash attention for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
-// src/repro/kernels/flash_attention.py: q (B,H,S,hd) attends to k/v
-// (B,Hkv,T,hd) with per-token positions q_pos (B,S) and k_pos (B,T).
+// src/repro/kernels/flash_attention.py: q (B,H,S,hd) attends to k
+// (B,Hkv,T,hd) and v (B,Hkv,T,hd_v) with per-token positions q_pos (B,S)
+// and k_pos (B,T); the output is (B,H,S,hd_v).  hd_v is hd, or 128 at hd
+// 192 (MLA: q/k nope 128 + rope 64, V 128).
 // A pair is kept when kp >= 0, qp >= 0, kp <= qp (causal) and, with a
 // window, qp - kp < window; masked scores take the finite NEG_INF = -1e30,
 // so a row whose keys are all masked returns mean(V), as the reference
@@ -21,8 +23,9 @@
 // (B,S,H,hd) views in place: no copies or transposes, but 16-byte
 // aligned base addresses and strides, which the wrapper checks.  Head
 // dims are padded to a multiple of 64 (16, 32 and 64 to 64, 112 and 128
-// to 128, 160 to 192) by the TMA zero fill; 192 (MLA's nope + rope
-// width, V zero-padded to it by the caller) and 256 need none.
+// to 128, 160 to 192) by the TMA zero fill; 192 and 256 need none.  V
+// and O take their own padded width: at MLA's (192, 128) the P V product
+// and O's accumulator are 128 wide.
 //
 // Both write each row's log-sum-exp, in natural-log units of the scaled
 // scores (lse = m + log l), into `lse` (B,H,S) fp32 when it is not null:
@@ -61,7 +64,7 @@ constexpr int NT = 256;  // threads: 32 row groups (2 rows) x 8 column groups
 struct Args {
   const void* q; const void* k; const void* v;
   const int* qpos; const int* kpos; void* out; float* lse;
-  int B, H, Hkv, S, T, g, hd;
+  int B, H, Hkv, S, T, g, hd, hdv;
   long long sqb, sqh, sqs, skb, skh, skt, svb, svh, svt;
   long long sob, soh, sos, sqpb, sqps, skpb, skpt;
   float scale; int causal; int window;
@@ -75,27 +78,27 @@ __device__ __forceinline__ bool keep(int qp, int kp, int causal,
   return ok;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (HD + 1) + HD * (BK + 1) + BK * HD +
+  return sizeof(float) * (BQ * (HD + 1) + HD * (BK + 1) + BK * HDV +
                           BQ * (BK + 1)) +
          sizeof(int) * (BQ + BK);
 }
 
 // fp32 inputs: each thread owns 2 query rows x 4 keys of S and the same
-// 2 rows x HD/8 columns of O, all in fp32 from shared memory.
-template <typename T, int HD>
+// 2 rows x HDV/8 columns of O, all in fp32 from shared memory.
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [BQ][HD+1]
   float* Kt = Qs + BQ * (HD + 1);          // [HD][BK+1], K transposed
-  float* Vs = Kt + HD * (BK + 1);          // [BK][HD]
-  float* Ps = Vs + BK * HD;                // [BQ][BK+1]
+  float* Vs = Kt + HD * (BK + 1);          // [BK][HDV]
+  float* Ps = Vs + BK * HDV;               // [BQ][BK+1]
   int* qp_s = reinterpret_cast<int*>(Ps + BQ * (BK + 1));  // [BQ]
   int* kp_s = qp_s + BQ;                                   // [BK]
 
   constexpr int CPT = BK / 8;  // columns per thread
-  constexpr int DPT = HD / 8;  // output dims per thread
+  constexpr int DPT = HDV / 8;  // output dims per thread
   const int tid = threadIdx.x;
   const int rg = tid / 8, cg = tid % 8;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -150,7 +153,7 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
     if (__syncthreads_and(idle)) continue;
 
     attn::load_rows<T, HD, BK, NT, true>(k, a.skt, k0, a.T, Kt, BK + 1);
-    attn::load_rows<T, HD, BK, NT, false>(v, a.svt, k0, a.T, Vs, HD);
+    attn::load_rows<T, HDV, BK, NT, false>(v, a.svt, k0, a.T, Vs, HDV);
     __syncthreads();
 
     float s[2][CPT];
@@ -213,7 +216,7 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
       const float pa = p0r[c], pb = p1r[c];
-      const float* vr = Vs + c * HD + cg;
+      const float* vr = Vs + c * HDV + cg;
 #pragma unroll
       for (int j = 0; j < DPT; ++j) {
         const float vv = vr[8 * j];
@@ -246,7 +249,8 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
 // producer's lane 0 brings the Q tile in once and K/V tiles of BN keys
 // into a STAGES-deep ring by TMA (128-byte swizzle, 64-column boxes; the
 // out-of-bounds zero fill pads the head dim to a multiple of 64 and the
-// ragged ends of S and T), signalling `kfull`/`vfull`; the consumers
+// ragged ends of S and T; V at its own padded width HDPV), signalling
+// `kfull`/`vfull`; the consumers
 // release a stage on `empty` once both of its products are done.  Per
 // tile a consumer warpgroup computes S = Q K^T by wgmma (both operands
 // in shared memory), masks and runs the online softmax on the fp32
@@ -271,17 +275,20 @@ constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
 constexpr int STAGES = 2;                // K/V ring depth
 constexpr uint8_t EMPTY = 0, FULL = 1, MIXED = 2;
 
-template <int HDP>  // head dim padded to a multiple of 64
+// q/k and v head dims padded to a multiple of 64
+template <int HDP, int HDPV>
 struct Tile {
   static constexpr int BN = HDP <= 128 ? 128 : 64;  // keys per kv tile
   static constexpr int NBOX = HDP / 64;             // TMA boxes per row
+  static constexpr int NBOXV = HDPV / 64;           // ... of a V row
   static constexpr int Q_BYTES = BM * HDP * 2;
-  static constexpr int KV_BYTES = BN * HDP * 2;     // one K or V tile
-  static constexpr int RING = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int K_BYTES = BN * HDP * 2;      // one K tile
+  static constexpr int V_BYTES = BN * HDPV * 2;     // one V tile
+  static constexpr int RING = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
   // after the ring: barriers (q, then kfull, vfull, empty per stage),
   // q stats, per-warpgroup masked flags, mean(V), then one class byte
   // per kv tile; 1024 bytes of slack align the ring for the swizzle
-  static constexpr int TAIL = 8 * (1 + 3 * STAGES) + 16 + 16 + 2 * HDP * 4;
+  static constexpr int TAIL = 8 * (1 + 3 * STAGES) + 16 + 16 + 2 * HDPV * 4;
   static size_t smem_bytes(int ntk) { return 1024 + RING + TAIL + ntk; }
 };
 
@@ -289,28 +296,28 @@ __device__ __forceinline__ void bar_sync_wg(int id) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
 }
 
-template <int HDP>
+template <int HDP, int HDPV>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tmq,
                     const __grid_constant__ CUtensorMap tmk,
                     const __grid_constant__ CUtensorMap tmv, Args a) {
   using bf16 = __nv_bfloat16;
-  using TL = Tile<HDP>;
+  using TL = Tile<HDP, HDPV>;
   constexpr int BN = TL::BN;
   extern __shared__ unsigned char wg_smem[];
   unsigned char* base =
       wg_smem + ((1024 - (attn::smem_addr(wg_smem) & 1023)) & 1023);
   bf16* Qs = reinterpret_cast<bf16*>(base);          // [NBOX][BM][64]
   bf16* Ks = Qs + BM * HDP;                          // [STAGES][NBOX][BN][64]
-  bf16* Vs = Ks + STAGES * BN * HDP;                 // [STAGES][NBOX][BN][64]
+  bf16* Vs = Ks + STAGES * BN * HDP;                 // [STAGES][NBOXV][BN][64]
   uint64_t* qbar = reinterpret_cast<uint64_t*>(base + TL::RING);
   uint64_t* kfull = qbar + 1;
   uint64_t* vfull = kfull + STAGES;
   uint64_t* empty = vfull + STAGES;
   int* qstat = reinterpret_cast<int*>(empty + STAGES);  // qmin, qmax, pad
   int* masked = qstat + 4;                              // [2]
-  float* meanv = reinterpret_cast<float*>(masked + 4);  // [2][HDP]
-  uint8_t* cls = reinterpret_cast<uint8_t*>(meanv + 2 * HDP);
+  float* meanv = reinterpret_cast<float*>(masked + 4);  // [2][HDPV]
+  uint8_t* cls = reinterpret_cast<uint8_t*>(meanv + 2 * HDPV);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int h = blockIdx.x, b = blockIdx.z;
@@ -391,13 +398,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int s = it % STAGES;
         hopper::mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
         bf16* kd = Ks + s * BN * HDP;
-        bf16* vd = Vs + s * BN * HDP;
-        hopper::mbar_expect_tx(kfull + s, TL::KV_BYTES);
+        bf16* vd = Vs + s * BN * HDPV;
+        hopper::mbar_expect_tx(kfull + s, TL::K_BYTES);
         for (int c = 0; c < TL::NBOX; ++c)
           hopper::tma_load_4d(kd + c * BN * 64, &tmk, kfull + s, 64 * c,
                               j * BN, kvh, b);
-        hopper::mbar_expect_tx(vfull + s, TL::KV_BYTES);
-        for (int c = 0; c < TL::NBOX; ++c)
+        hopper::mbar_expect_tx(vfull + s, TL::V_BYTES);
+        for (int c = 0; c < TL::NBOXV; ++c)
           hopper::tma_load_4d(vd + c * BN * 64, &tmv, vfull + s, 64 * c,
                               j * BN, kvh, b);
         ++it;
@@ -422,9 +429,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     m[i] = NEG_INF;
     l[i] = 0.f;
   }
-  float o[HDP / 2], sacc[BN / 2];
+  float o[HDPV / 2], sacc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDPV / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) sacc[i] = 0.f;
   const bf16* qw = Qs + wgi * 64 * 64;
@@ -438,7 +445,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t parity = (it / STAGES) & 1;
     ++it;
     const bf16* ks = Ks + s * BN * HDP;
-    const bf16* vs = Vs + s * BN * HDP;
+    const bf16* vs = Vs + s * BN * HDPV;
 
     // S = Q K^T
     hopper::mbar_wait(kfull + s, parity);
@@ -499,7 +506,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
 #pragma unroll
-      for (int nb = 0; nb < HDP / 8; ++nb) {
+      for (int nb = 0; nb < HDPV / 8; ++nb) {
         o[4 * nb + 2 * i] *= alpha;
         o[4 * nb + 2 * i + 1] *= alpha;
       }
@@ -515,16 +522,16 @@ __global__ void __launch_bounds__(THREADS, 1)
                                     sacc[8 * kk + 2 * r + 1]);
 
     hopper::mbar_wait(vfull + s, parity);
-    hopper::fence_regs<HDP / 2>(o);
+    hopper::fence_regs<HDPV / 2>(o);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      hopper::Wgmma<HDP>::rs(o, pa[kk],
-                             hopper::sw128_desc(vs + kk * 16 * 64, BN * 128),
-                             1);
+      hopper::Wgmma<HDPV>::rs(o, pa[kk],
+                              hopper::sw128_desc(vs + kk * 16 * 64, BN * 128),
+                              1);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
-    hopper::fence_regs<HDP / 2>(o);
+    hopper::fence_regs<HDPV / 2>(o);
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(empty + s);
   }
@@ -535,10 +542,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < 2; ++i) none |= rvalid[i] && !(m[i] > 0.5f * NEG_INF);
   if (__any_sync(0xffffffffu, none) && lane == 0) masked[wgi] = 1;
   bar_sync_wg(1 + wgi);
-  float* mv = meanv + wgi * HDP;
+  float* mv = meanv + wgi * HDPV;
   if (masked[wgi]) {
     const bf16* v = static_cast<const bf16*>(a.v) + b * a.svb + kvh * a.svh;
-    for (int d = tid % 128; d < a.hd; d += 128) {
+    for (int d = tid % 128; d < a.hdv; d += 128) {
       float sum = 0.f;
       for (int t = 0; t < a.T; ++t) sum += __bfloat162float(v[t * a.svt + d]);
       mv[d] = sum / a.T;
@@ -557,9 +564,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       a.lse[(static_cast<long long>(b) * a.H + h) * a.S + qi] =
           mean ? NEG_INF : (m[i] + log2f(l[i])) * 0.6931471805599453f;
 #pragma unroll
-    for (int nb = 0; nb < HDP / 8; ++nb) {
+    for (int nb = 0; nb < HDPV / 8; ++nb) {
       const int col = 8 * nb + c0;
-      if (col >= a.hd) continue;
+      if (col >= a.hdv) continue;
       const float x0 = mean ? mv[col] : o[4 * nb + 2 * i] * inv;
       const float x1 = mean ? mv[col + 1] : o[4 * nb + 2 * i + 1] * inv;
       *reinterpret_cast<__nv_bfloat162*>(out + qi * a.sos + col) =
@@ -570,75 +577,81 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 }  // namespace wg
 
-template <int HDP>
+template <int HDP, int HDPV>
 cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
-  using TL = wg::Tile<HDP>;
+  using TL = wg::Tile<HDP, HDPV>;
   CUtensorMap mq, mk, mv;
   if (!hopper::make_map(&mq, a.q, a.hd, a.S, a.H, a.B, a.sqs, a.sqh, a.sqb,
                         wg::BM) ||
       !hopper::make_map(&mk, a.k, a.hd, a.T, a.Hkv, a.B, a.skt, a.skh,
                         a.skb, TL::BN) ||
-      !hopper::make_map(&mv, a.v, a.hd, a.T, a.Hkv, a.B, a.svt, a.svh,
+      !hopper::make_map(&mv, a.v, a.hdv, a.T, a.Hkv, a.B, a.svt, a.svh,
                         a.svb, TL::BN))
     return cudaErrorInvalidValue;
   const size_t bytes = TL::smem_bytes((a.T + TL::BN - 1) / TL::BN);
   cudaError_t err = cudaFuncSetAttribute(
-      wg::flash_fwd_wgmma<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      wg::flash_fwd_wgmma<HDP, HDPV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid(a.H, (a.S + wg::BM - 1) / wg::BM, a.B);
-  wg::flash_fwd_wgmma<HDP><<<grid, wg::THREADS, bytes, stream>>>(mq, mk, mv,
-                                                                 a);
+  wg::flash_fwd_wgmma<HDP, HDPV><<<grid, wg::THREADS, bytes, stream>>>(
+      mq, mk, mv, a);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD>();
+  constexpr size_t bytes = smem_bytes<HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
-  flash_fwd<T, HD><<<grid, NT, bytes, stream>>>(a);
+  flash_fwd<T, HD, HDV><<<grid, NT, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 // fp32 inputs take the FMA kernel (no TF32); bf16 inputs the wgmma
-// kernel, the head dim padded to a multiple of 64 by the TMA zero fill.
+// kernel, the head dims padded to a multiple of 64 by the TMA zero fill.
+// (hd, hd_v): (hd, hd) at every head dim, and (192, 128).
 cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
+  if (a.hdv != a.hd) {
+    if (a.hd != 192 || a.hdv != 128) return cudaErrorInvalidValue;
+    return dtype == 1 ? launch_wgmma<192, 128>(a, st)
+                      : launch<float, 192, 128>(a, st);
+  }
   if (dtype == 1) {
     switch (a.hd) {
       case 16:
       case 32:
-      case 64: return launch_wgmma<64>(a, st);
-      case 112: return launch_wgmma<128>(a, st);
-      case 128: return launch_wgmma<128>(a, st);
+      case 64: return launch_wgmma<64, 64>(a, st);
+      case 112: return launch_wgmma<128, 128>(a, st);
+      case 128: return launch_wgmma<128, 128>(a, st);
       case 160:
-      case 192: return launch_wgmma<192>(a, st);
-      case 256: return launch_wgmma<256>(a, st);
+      case 192: return launch_wgmma<192, 192>(a, st);
+      case 256: return launch_wgmma<256, 256>(a, st);
       default: return cudaErrorInvalidValue;
     }
   }
   switch (a.hd) {
-    case 16: return launch<float, 16>(a, st);
-    case 32: return launch<float, 32>(a, st);
-    case 64: return launch<float, 64>(a, st);
-    case 112: return launch<float, 112>(a, st);
-    case 128: return launch<float, 128>(a, st);
-    case 160: return launch<float, 160>(a, st);
-    case 192: return launch<float, 192>(a, st);
-    case 256: return launch<float, 256>(a, st);
+    case 16: return launch<float, 16, 16>(a, st);
+    case 32: return launch<float, 32, 32>(a, st);
+    case 64: return launch<float, 64, 64>(a, st);
+    case 112: return launch<float, 112, 112>(a, st);
+    case 128: return launch<float, 128, 128>(a, st);
+    case 160: return launch<float, 160, 160>(a, st);
+    case 192: return launch<float, 192, 192>(a, st);
+    case 256: return launch<float, 256, 256>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dims: B, H, Hkv, S, T, hd.  strides (elements): q (b,h,s), k (b,h,t),
-// v (b,h,t), out (b,h,s), q_pos (b,s), k_pos (b,t); the head dimension
-// of q, k, v and out is unit-stride.  lse: null, or a contiguous (B,H,S)
-// fp32 output.  dtype: 0 = float32, 1 = bfloat16.  Returns
+// dims: B, H, Hkv, S, T, hd, hd_v.  strides (elements): q (b,h,s), k
+// (b,h,t), v (b,h,t), out (b,h,s), q_pos (b,s), k_pos (b,t); the head
+// dimension of q, k, v and out is unit-stride.  lse: null, or a
+// contiguous (B,H,S) fp32 output.  dtype: 0 = float32, 1 = bfloat16.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* q_pos,
@@ -658,6 +671,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   a.S = static_cast<int>(dims[3]);
   a.T = static_cast<int>(dims[4]);
   a.hd = static_cast<int>(dims[5]);
+  a.hdv = static_cast<int>(dims[6]);
   a.g = a.H / a.Hkv;
   a.sqb = strides[0]; a.sqh = strides[1]; a.sqs = strides[2];
   a.skb = strides[3]; a.skh = strides[4]; a.skt = strides[5];

@@ -1,11 +1,9 @@
 // Prefill flash attention backward for Hopper (sm_90a): the scalar
-// kernels, included by flash_attention_bwd_f32.cu and
-// flash_attention_bwd_bf16.cu, which instantiate them for one input type
-// each and export the plain C entry point (two sources, so that the two
-// halves build in parallel).  fp32 inputs take these kernels at every
-// head dim (fp32 never runs on TF32); bf16 inputs take them at head dims
-// 160, 192 and 256, and the tensor-core kernels of
-// flash_attention_bwd_wgmma.cuh at 16 to 128.
+// kernels, instantiated by flash_attention_bwd_f32.cu, which exports their
+// plain C entry point: fp32 inputs take them at every (hd, hd_v) pair
+// (fp32 never runs on TF32).  bf16 inputs take the tensor-core kernels of
+// flash_attention_bwd_wgmma.cuh (flash_attention_bwd_bf16.cu), which share
+// the arguments and mask helpers below.
 //
 // Replaces what the JAX package gets from XLA's autodiff of its jnp
 // attention, `_attend` / `blockwise_attention` in
@@ -13,7 +11,8 @@
 // backward; training differentiates the jnp version).  The forward is
 // K2 (csrc/flash_attention.cu), which also writes each row's natural-log
 // log-sum-exp `lse` (B,H,S) fp32 of its scaled, masked scores.  Given
-// dO (the gradient of K2's output), this computes dQ, dK and dV:
+// dO (the gradient of K2's output, (B,H,S,hd_v)), this computes dQ, dK
+// and dV:
 //
 //     P  = exp(scale * Q K^T - lse)        kept pairs; 0 for masked ones
 //     dV = P^T dO              dP = dO V^T        D = rowsum(dO o O)
@@ -41,14 +40,15 @@
 // product is a scalar fp32 FMA (never TF32); outputs are rounded once, to
 // the input type.
 //
-// Bound.  5 products of 2*(kept pairs)*hd FLOPs (S and dP recomputed, dV,
-// dK, dQ): 2.5 times the forward's operations, against 989 TFLOP/s bf16
-// tensor cores (67 TFLOP/s fp32 without them) on an H100 SXM; operations,
-// not bytes, at every trained shape.  These kernels run on the fp32 CUDA
+// Bound.  5 products of 2*(kept pairs) FLOPs times their depth: S, dK and
+// dQ hd, dP and dV hd_v (2 * (3 hd + 2 hd_v) * kept pairs in all; 2.5
+// times the forward's at hd = hd_v), against 989 TFLOP/s bf16 tensor
+// cores (67 TFLOP/s fp32 without them) on an H100 SXM; operations, not
+// bytes, at every trained shape.  These kernels run on the fp32 CUDA
 // cores and read two shared-memory operands per FMA or so: at
 // StarCoder2-7B's trained shape (B 2, S = T = 2048, hd 128) they took
 // 21.8 ms against a 0.196 ms bound on an H100 80GB HBM3 at 700 W, which
-// is why bf16 at hd <= 128 runs on the tensor cores instead.
+// is why bf16 runs on the tensor cores instead.
 #pragma once
 
 #include "attention_common.cuh"
@@ -67,7 +67,7 @@ struct Args {
   const float* lse; float* dsum;
   const int* qpos; const int* kpos;
   void* dq; void* dk; void* dv;
-  int B, H, Hkv, S, T, g, hd;
+  int B, H, Hkv, S, T, g, hd, hdv;
   long long sqb, sqh, sqs, skb, skh, skt, svb, svh, svt;
   long long sob, soh, sos, sdob, sdoh, sdos;
   long long sdqb, sdqh, sdqs, sdkb, sdkh, sdkt, sdvb, sdvh, sdvt;
@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(NT) bwd_dsum(Args a) {
   const T* d = static_cast<const T*>(a.dout) + b * a.sdob + h * a.sdoh +
                s * a.sdos;
   float acc = 0.f;
-  for (int i = lane; i < a.hd; i += 32)
+  for (int i = lane; i < a.hdv; i += 32)
     acc = fmaf(attn::to_f(d[i]), attn::to_f(o[i]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -114,71 +114,77 @@ __global__ void __launch_bounds__(NT) bwd_dsum(Args a) {
   if (lane == 0) a.dsum[row] = acc;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dkdv_smem() {
   constexpr int BQ = BQ_OF<HD>;
-  return sizeof(float) * (2 * BQ * (HD + 1) + 2 * HD * (BK + 1) +
-                          2 * BQ * (BK + 1) + 2 * BQ) +
+  return sizeof(float) * (BQ * (HD + 1) + BQ * (HDV + 1) +
+                          (HD + HDV) * (BK + 1) + 2 * BQ * (BK + 1) +
+                          2 * BQ) +
          sizeof(int) * (BQ + BK);
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dq_smem() {
   constexpr int BQ = BQ_OF<HD>;
-  return sizeof(float) * (2 * BQ * (HD + 1) + 2 * HD * (BK + 1) + BK * HD +
-                          BQ * (BK + 1) + 2 * BQ) +
+  return sizeof(float) * (BQ * (HD + 1) + BQ * (HDV + 1) +
+                          (HD + HDV) * (BK + 1) + BK * HD + BQ * (BK + 1) +
+                          2 * BQ) +
          sizeof(int) * (BQ + BK);
 }
 
-// S = Q K^T (unscaled) and dP = dO V^T for the RPT rows x CPT keys a
-// thread owns: rows RPT*rg + i, keys cg + 8 j.
-template <int HD, int RPT, int CPT>
+// acc[i][j] = sum_d A[RPT*rg + i][d] Bt[d][cg + 8 j] over D columns: A
+// row-major with row stride D + 1, Bt (D, BK + 1).
+template <int D, int RPT, int CPT>
+__device__ __forceinline__ void row_products(const float* A, const float* Bt,
+                                             int rg, int cg,
+                                             float (&acc)[RPT][CPT]) {
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float x[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) x[i] = A[(RPT * rg + i) * (D + 1) + d];
+    const float* br = Bt + d * (BK + 1) + cg;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float y = br[8 * j];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(x[i], y, acc[i][j]);
+    }
+  }
+}
+
+// S = Q K^T (unscaled, over HD) and dP = dO V^T (over HDV) for the RPT
+// rows x CPT keys a thread owns: rows RPT*rg + i, keys cg + 8 j.
+template <int HD, int HDV, int RPT, int CPT>
 __device__ __forceinline__ void tile_products(const float* Qs,
                                               const float* dOs,
                                               const float* Kt,
                                               const float* Vt, int rg,
                                               int cg, float (&s)[RPT][CPT],
                                               float (&dp)[RPT][CPT]) {
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float qa[RPT], oa[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      qa[i] = Qs[(RPT * rg + i) * (HD + 1) + d];
-      oa[i] = dOs[(RPT * rg + i) * (HD + 1) + d];
-    }
-    const float* kr = Kt + d * (BK + 1) + cg;
-    const float* vr = Vt + d * (BK + 1) + cg;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const float kv = kr[8 * j], vv = vr[8 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        s[i][j] = fmaf(qa[i], kv, s[i][j]);
-        dp[i][j] = fmaf(oa[i], vv, dp[i][j]);
-      }
-    }
-  }
+  row_products<HD, RPT, CPT>(Qs, Kt, rg, cg, s);
+  row_products<HDV, RPT, CPT>(dOs, Vt, rg, cg, dp);
 }
 
 // One block per (32-key tile, kv head, batch): dK and dV of its keys,
 // summed over the g heads of the group and every query tile.
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(NT) bwd_dkdv(Args a) {
   constexpr int BQ = BQ_OF<HD>;
   constexpr int RPT = BQ / 32;  // rows per thread in the S tile
   constexpr int CPT = BK / 8;   // keys per thread in the S tile
-  constexpr int DPT = HD / 8;   // dims per thread in dK, dV
+  constexpr int DPT = HD / 8;   // dims per thread in dK
+  constexpr int DPTV = HDV / 8;  // ... in dV
   extern __shared__ float smem[];
   float* Qs = smem;                   // [BQ][HD+1]
-  float* dOs = Qs + BQ * (HD + 1);    // [BQ][HD+1]
-  float* Kt = dOs + BQ * (HD + 1);    // [HD][BK+1], K transposed
-  float* Vt = Kt + HD * (BK + 1);     // [HD][BK+1], V transposed
-  float* Ps = Vt + HD * (BK + 1);     // [BQ][BK+1]
+  float* dOs = Qs + BQ * (HD + 1);    // [BQ][HDV+1]
+  float* Kt = dOs + BQ * (HDV + 1);   // [HD][BK+1], K transposed
+  float* Vt = Kt + HD * (BK + 1);     // [HDV][BK+1], V transposed
+  float* Ps = Vt + HDV * (BK + 1);    // [BQ][BK+1]
   float* dSs = Ps + BQ * (BK + 1);    // [BQ][BK+1]
   float* lse_s = dSs + BQ * (BK + 1);  // [BQ]
   float* D_s = lse_s + BQ;             // [BQ]
@@ -191,13 +197,15 @@ __global__ void __launch_bounds__(NT) bwd_dkdv(Args a) {
   const T* k = static_cast<const T*>(a.k) + b * a.skb + kvh * a.skh;
   const T* v = static_cast<const T*>(a.v) + b * a.svb + kvh * a.svh;
   attn::load_rows<T, HD, BK, NT, true>(k, a.skt, k0, a.T, Kt, BK + 1);
-  attn::load_rows<T, HD, BK, NT, true>(v, a.svt, k0, a.T, Vt, BK + 1);
+  attn::load_rows<T, HDV, BK, NT, true>(v, a.svt, k0, a.T, Vt, BK + 1);
   for (int c = tid; c < BK; c += NT)
     kp_s[c] = k0 + c < a.T ? a.kpos[b * a.skpb + (k0 + c) * a.skpt] : -1;
 
-  float dk[DPT], dv[DPT];
+  float dk[DPT], dv[DPTV];
 #pragma unroll
-  for (int j = 0; j < DPT; ++j) dk[j] = dv[j] = 0.f;
+  for (int j = 0; j < DPT; ++j) dk[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < DPTV; ++j) dv[j] = 0.f;
   const float uniform = 1.f / a.T;
   const int nq = (a.S + BQ - 1) / BQ;
 
@@ -233,12 +241,12 @@ __global__ void __launch_bounds__(NT) bwd_dkdv(Args a) {
       }
       if (!__syncthreads_or(live)) continue;
       attn::load_rows<T, HD, BQ, NT, false>(q, a.sqs, q0, a.S, Qs, HD + 1);
-      attn::load_rows<T, HD, BQ, NT, false>(dout, a.sdos, q0, a.S, dOs,
-                                            HD + 1);
+      attn::load_rows<T, HDV, BQ, NT, false>(dout, a.sdos, q0, a.S, dOs,
+                                             HDV + 1);
       __syncthreads();
 
       float s[RPT][CPT], dp[RPT][CPT];
-      tile_products<HD, RPT, CPT>(Qs, dOs, Kt, Vt, rg, cg, s, dp);
+      tile_products<HD, HDV, RPT, CPT>(Qs, dOs, Kt, Vt, rg, cg, s, dp);
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const int r = RPT * rg + i;
@@ -265,13 +273,12 @@ __global__ void __launch_bounds__(NT) bwd_dkdv(Args a) {
       for (int r = 0; r < BQ; ++r) {
         const float p = Ps[r * (BK + 1) + kc];
         const float ds = dSs[r * (BK + 1) + kc];
-        const float* orow = dOs + r * (HD + 1) + dg;
+        const float* orow = dOs + r * (HDV + 1) + dg;
         const float* qrow = Qs + r * (HD + 1) + dg;
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          dv[j] = fmaf(p, orow[8 * j], dv[j]);
-          dk[j] = fmaf(ds, qrow[8 * j], dk[j]);
-        }
+        for (int j = 0; j < DPTV; ++j) dv[j] = fmaf(p, orow[8 * j], dv[j]);
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) dk[j] = fmaf(ds, qrow[8 * j], dk[j]);
       }
     }
   }
@@ -281,16 +288,16 @@ __global__ void __launch_bounds__(NT) bwd_dkdv(Args a) {
     T* dko = static_cast<T*>(a.dk) + b * a.sdkb + kvh * a.sdkh + t * a.sdkt;
     T* dvo = static_cast<T*>(a.dv) + b * a.sdvb + kvh * a.sdvh + t * a.sdvt;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
+    for (int j = 0; j < DPT; ++j)
       dko[dg + 8 * j] = from_f<T>(dk[j] * a.scale);
-      dvo[dg + 8 * j] = from_f<T>(dv[j]);
-    }
+#pragma unroll
+    for (int j = 0; j < DPTV; ++j) dvo[dg + 8 * j] = from_f<T>(dv[j]);
   }
 }
 
 // One block per (query tile, head, batch): dQ of its rows over every key
 // tile.
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(NT) bwd_dq(Args a) {
   constexpr int BQ = BQ_OF<HD>;
   constexpr int RPT = BQ / 32;
@@ -298,10 +305,10 @@ __global__ void __launch_bounds__(NT) bwd_dq(Args a) {
   constexpr int DPT = HD / 8;   // dims per thread in dQ
   extern __shared__ float smem[];
   float* Qs = smem;                   // [BQ][HD+1]
-  float* dOs = Qs + BQ * (HD + 1);    // [BQ][HD+1]
-  float* Kt = dOs + BQ * (HD + 1);    // [HD][BK+1], K transposed
-  float* Vt = Kt + HD * (BK + 1);     // [HD][BK+1], V transposed
-  float* Ks = Vt + HD * (BK + 1);     // [BK][HD]
+  float* dOs = Qs + BQ * (HD + 1);    // [BQ][HDV+1]
+  float* Kt = dOs + BQ * (HDV + 1);   // [HD][BK+1], K transposed
+  float* Vt = Kt + HD * (BK + 1);     // [HDV][BK+1], V transposed
+  float* Ks = Vt + HDV * (BK + 1);    // [BK][HD]
   float* dSs = Ks + BK * HD;          // [BQ][BK+1]
   float* lse_s = dSs + BQ * (BK + 1);  // [BQ]
   float* D_s = lse_s + BQ;             // [BQ]
@@ -318,7 +325,8 @@ __global__ void __launch_bounds__(NT) bwd_dq(Args a) {
   const long long row0 = (static_cast<long long>(b) * a.H + h) * a.S;
 
   attn::load_rows<T, HD, BQ, NT, false>(q, a.sqs, q0, a.S, Qs, HD + 1);
-  attn::load_rows<T, HD, BQ, NT, false>(dout, a.sdos, q0, a.S, dOs, HD + 1);
+  attn::load_rows<T, HDV, BQ, NT, false>(dout, a.sdos, q0, a.S, dOs,
+                                         HDV + 1);
   for (int r = tid; r < BQ; r += NT) {
     const int qi = q0 + r;
     const bool ok = qi < a.S;
@@ -354,12 +362,12 @@ __global__ void __launch_bounds__(NT) bwd_dq(Args a) {
     }
     if (!__syncthreads_or(live)) continue;
     attn::load_rows<T, HD, BK, NT, true>(k, a.skt, k0, a.T, Kt, BK + 1);
-    attn::load_rows<T, HD, BK, NT, true>(v, a.svt, k0, a.T, Vt, BK + 1);
+    attn::load_rows<T, HDV, BK, NT, true>(v, a.svt, k0, a.T, Vt, BK + 1);
     attn::load_rows<T, HD, BK, NT, false>(k, a.skt, k0, a.T, Ks, HD);
     __syncthreads();
 
     float s[RPT][CPT], dp[RPT][CPT];
-    tile_products<HD, RPT, CPT>(Qs, dOs, Kt, Vt, rg, cg, s, dp);
+    tile_products<HD, HDV, RPT, CPT>(Qs, dOs, Kt, Vt, rg, cg, s, dp);
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = RPT * rg + i;
@@ -405,7 +413,7 @@ __global__ void __launch_bounds__(NT) bwd_dq(Args a) {
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 cudaError_t launch(const Args& a, cudaStream_t st) {
   constexpr int BQ = BQ_OF<HD>;
   const long long rows = static_cast<long long>(a.B) * a.H * a.S;
@@ -414,36 +422,41 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t kv_bytes = dkdv_smem<HD>();
-  err = cudaFuncSetAttribute(bwd_dkdv<T, HD>,
+  constexpr size_t kv_bytes = dkdv_smem<HD, HDV>();
+  err = cudaFuncSetAttribute(bwd_dkdv<T, HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kv_bytes));
   if (err != cudaSuccess) return err;
-  bwd_dkdv<T, HD><<<dim3((a.T + BK - 1) / BK, a.Hkv, a.B), NT, kv_bytes,
-                    st>>>(a);
+  bwd_dkdv<T, HD, HDV><<<dim3((a.T + BK - 1) / BK, a.Hkv, a.B), NT,
+                         kv_bytes, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t q_bytes = dq_smem<HD>();
-  err = cudaFuncSetAttribute(bwd_dq<T, HD>,
+  constexpr size_t q_bytes = dq_smem<HD, HDV>();
+  err = cudaFuncSetAttribute(bwd_dq<T, HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(q_bytes));
   if (err != cudaSuccess) return err;
-  bwd_dq<T, HD><<<dim3((a.S + BQ - 1) / BQ, a.H, a.B), NT, q_bytes, st>>>(a);
+  bwd_dq<T, HD, HDV><<<dim3((a.S + BQ - 1) / BQ, a.H, a.B), NT, q_bytes,
+                       st>>>(a);
   return cudaGetLastError();
 }
 
+// (hd, hd_v): (hd, hd) at every head dim, and (192, 128).
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t st) {
+  if (a.hdv != a.hd)
+    return a.hd == 192 && a.hdv == 128 ? launch<T, 192, 128>(a, st)
+                                       : cudaErrorInvalidValue;
   switch (a.hd) {
-    case 16: return launch<T, 16>(a, st);
-    case 32: return launch<T, 32>(a, st);
-    case 64: return launch<T, 64>(a, st);
-    case 112: return launch<T, 112>(a, st);
-    case 128: return launch<T, 128>(a, st);
-    case 160: return launch<T, 160>(a, st);
-    case 192: return launch<T, 192>(a, st);
-    case 256: return launch<T, 256>(a, st);
+    case 16: return launch<T, 16, 16>(a, st);
+    case 32: return launch<T, 32, 32>(a, st);
+    case 64: return launch<T, 64, 64>(a, st);
+    case 112: return launch<T, 112, 112>(a, st);
+    case 128: return launch<T, 128, 128>(a, st);
+    case 160: return launch<T, 160, 160>(a, st);
+    case 192: return launch<T, 192, 192>(a, st);
+    case 256: return launch<T, 256, 256>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -467,6 +480,7 @@ inline Args make_args(const void* q, const void* k, const void* v,
   a.S = static_cast<int>(dims[3]);
   a.T = static_cast<int>(dims[4]);
   a.hd = static_cast<int>(dims[5]);
+  a.hdv = static_cast<int>(dims[6]);
   a.g = a.H / a.Hkv;
   const long long* st = strides;
   a.sqb = st[0]; a.sqh = st[1]; a.sqs = st[2];

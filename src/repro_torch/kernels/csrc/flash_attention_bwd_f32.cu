@@ -1,10 +1,10 @@
 // Prefill flash attention backward, fp32 inputs: the C entry points of
 // the scalar kernels in flash_attention_bwd.cuh (see there), at every
-// head dim.
+// (hd, hd_v) pair K2 takes.
 #include "flash_attention_bwd.cuh"
 
-// dims: B, H, Hkv, S, T, hd.  The bytes of scratch `flash_attention_bwd`
-// needs: D, (B,H,S) fp32.
+// dims: B, H, Hkv, S, T, hd, hd_v.  The bytes of scratch
+// `flash_attention_bwd` needs: D, (B,H,S) fp32.
 extern "C" long long flash_attention_bwd_scratch(int dtype,
                                                  const long long* dims) {
   return 4ll * dims[0] * dims[1] * dims[3];
@@ -13,10 +13,11 @@ extern "C" long long flash_attention_bwd_scratch(int dtype,
 // Which kernels take head dim hd: 0 = the scalar FMA kernels.
 extern "C" int flash_attention_bwd_route(int dtype, int hd) { return 0; }
 
-// dims: B, H, Hkv, S, T, hd.  strides (elements): q, o, dout, dq (b,h,s);
-// k, v, dk, dv (b,h,t); q_pos (b,s); k_pos (b,t), in the order q, k, v,
-// o, dout, dq, dk, dv, q_pos, k_pos.  The head dimension of every (.,
-// hd) tensor is unit-stride with 16-byte aligned rows.  lse is K2's
+// dims: B, H, Hkv, S, T, hd, hd_v (q, k, dq, dk at hd; v, o, dout, dv at
+// hd_v).  strides (elements): q, o, dout, dq (b,h,s); k, v, dk, dv
+// (b,h,t); q_pos (b,s); k_pos (b,t), in the order q, k, v, o, dout, dq,
+// dk, dv, q_pos, k_pos.  The head dimension of every tensor is
+// unit-stride with 16-byte aligned rows.  lse is K2's
 // contiguous (B,H,S) fp32; scratch holds flash_attention_bwd_scratch()
 // bytes.  dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError()
 // after the launches (0 on success).

@@ -157,6 +157,33 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
   "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),           \
       "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
 
+// D = A B^T (+ D when scale_d), m64n32k16: A and B K-major in shared
+// memory, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D = A B^T, m64n32k16, D's old value neither read nor kept.
+__device__ __forceinline__ void wgmma_ss_n32_zero(float* d, uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_O8(0), WG_O8(8)
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // D = A B^T (+ D when scale_d), m64n64k16: A and B K-major in shared
 // memory, 128-byte swizzle.
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
@@ -295,11 +322,23 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
 #undef WG_D8
 #undef WG_O8
 
-// The products by width N (accumulators: N / 2 floats per thread).
+// The products by width N (accumulators: N / 2 floats per thread);
+// `ss_zero` is the first k step of an SS product (D not read).
 template <int N> struct Wgmma;
+template <> struct Wgmma<32> {
+  __device__ static void ss(float* d, uint64_t a, uint64_t b, int s) {
+    wgmma_ss_n32(d, a, b, s);
+  }
+  __device__ static void ss_zero(float* d, uint64_t a, uint64_t b) {
+    wgmma_ss_n32_zero(d, a, b);
+  }
+};
 template <> struct Wgmma<64> {
   __device__ static void ss(float* d, uint64_t a, uint64_t b, int s) {
     wgmma_ss_n64(d, a, b, s);
+  }
+  __device__ static void ss_zero(float* d, uint64_t a, uint64_t b) {
+    wgmma_ss_n64_zero(d, a, b);
   }
   __device__ static void rs(float* d, const uint32_t* a, uint64_t b, int s) {
     wgmma_rs_n64(d, a, b, s);

@@ -26,6 +26,7 @@ from repro_torch.kernels import _build
 LAUNCHES = 0
 
 HEAD_DIMS = (16, 32, 64, 112, 128, 160, 256)
+_PAIRS = tuple((d, d) for d in HEAD_DIMS)  # V at q/k's head dim
 MAX_GROUP = 16     # GMAX in the source: query heads per kv head
 TILE = 64          # chunks (fp32 kernel) are multiples of this
 MAX_CHUNK = 1984   # so a bf16 piece, rounded to 16 slots, fits PIECE_MAX = 2048
@@ -95,7 +96,7 @@ def decode_attention(q, k, v, k_pos, cur_pos, *, scale: float,
     Returns (B,H,hd) in ``q.dtype``.
     """
     global LAUNCHES
-    _build.check_qkv("decode_attention", HEAD_DIMS, q=q, k=k, v=v)
+    _build.check_qkv("decode_attention", _PAIRS, dict(q=q, k=k), dict(v=v))
     B, H, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     if H % Hkv or H // Hkv > MAX_GROUP or k.shape[0] != B \

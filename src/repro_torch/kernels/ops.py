@@ -58,7 +58,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, q_pos, k_pos, *, scale: float,
                     causal: bool = True, window: int = 0):
-    """q: (B,H,S,hd); k/v: (B,Hkv,T,hd); q_pos: (B,S); k_pos: (B,T)."""
+    """q: (B,H,S,hd); k: (B,Hkv,T,hd); v: (B,Hkv,T,hd_v); q_pos: (B,S);
+    k_pos: (B,T).  Returns (B,H,S,hd_v)."""
     return _FlashAttention.apply(q, k, v, q_pos, k_pos, scale, causal,
                                  window)
 

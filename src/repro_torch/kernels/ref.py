@@ -44,7 +44,8 @@ def _masked_scores(q, k, mask, scale: float):
 
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, scale: float,
                         causal: bool = True, window: int = 0):
-    """q: (B,H,S,hd); k/v: (B,Hkv,T,hd); q_pos: (B,S); k_pos: (B,T)."""
+    """q: (B,H,S,hd); k: (B,Hkv,T,hd); v: (B,Hkv,T,hd_v); q_pos: (B,S);
+    k_pos: (B,T).  Returns (B,H,S,hd_v)."""
     return _prefill_ref(q, k, v, q_pos, k_pos, scale, causal, window)[0]
 
 
@@ -73,7 +74,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, q_pos, k_pos, *,
                             scale: float, causal: bool = True,
                             window: int = 0):
     """The gradients (dq, dk, dv) of the prefill attention's output ``o``
-    given its gradient ``do`` (B,H,S,hd) and the forward's ``lse``
+    given its gradient ``do`` (B,H,S,hd_v) and the forward's ``lse``
     (B,H,S), from the explicit formulas (fp32, each in its input's
     dtype)::
 

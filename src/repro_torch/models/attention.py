@@ -15,7 +15,7 @@ Prefill runs the flash-attention kernel K2 (where the reference runs
 ``blockwise_attention`` or ``_attend``): causal self-attention,
 bidirectional (``causal=False``, the encoder) and cross-attention
 (``kv_x``) alike; MLA's prefill hands it q and k of nope + rope dims and
-a V zero-padded to that width.  Decode runs the flash-decode kernel K1
+V at its own ``v_head_dim`` (K2 takes a V head dim of its own).  Decode runs the flash-decode kernel K1
 over the updated cache, and over the fixed encoder cache for
 cross-attention.  MLA decode keeps the reference's absorbed form in
 fp32 (scores against the latent cache, then ``wv_b``), plain PyTorch as
@@ -234,9 +234,9 @@ def _mla_kv(params: Attention, x, cfg: ModelConfig, positions):
 
 def _mla_forward(params: Attention, x, cfg: ModelConfig, positions, *,
                  return_cache: bool):
-    """Causal MLA prefill through K2: q and k are nope + rope wide, V is
-    zero-padded from v_head_dim to that width (a real buffer: K2 reads
-    one head dim) and the output sliced back."""
+    """Causal MLA prefill through K2: q and k are nope + rope wide, V and
+    the output v_head_dim wide, as the reference hands them to
+    ``blockwise_attention``."""
     m = cfg.mla
     B, S, _ = x.shape
     H, nope, vd = cfg.num_heads, m.qk_nope_head_dim, m.v_head_dim
@@ -247,12 +247,11 @@ def _mla_forward(params: Attention, x, cfg: ModelConfig, positions, *,
     k = torch.empty((B, S, H, hd), dtype=x.dtype, device=x.device)
     k[..., :nope] = (ckv @ params.wk_b).view(B, S, H, nope)
     k[..., nope:] = k_rope[:, :, None, :]
-    v = torch.zeros((B, S, H, hd), dtype=x.dtype, device=x.device)
-    v[..., :vd] = (ckv @ params.wv_b).view(B, S, H, vd)
+    v = (ckv @ params.wv_b).view(B, S, H, vd)
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), positions,
         positions, scale=1.0 / math.sqrt(hd), causal=True, window=0)
-    y = out.transpose(1, 2)[..., :vd].reshape(B, S, H * vd) @ params.wo
+    y = out.transpose(1, 2).reshape(B, S, H * vd) @ params.wo
     if not return_cache:
         return y, None
     return y, {"ckv": ckv, "krope": k_rope,

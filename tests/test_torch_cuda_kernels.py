@@ -113,10 +113,10 @@ def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd, window,
     (1, 64, False),         # one query row, one 64-key tile
 ])
 def test_flash_kernel_hd192_mla_layout(dev, dtype, S, T, causal):
-    """Head dim 192 (MLA's nope 128 + rope 64) as the MLA prefill hands
-    it over: q and k concatenated, V zero-padded from 128 to 192 in a
-    real buffer; the first 128 output columns against the plain version
-    on the unpadded V, the last 64 zero."""
+    """Head dim 192 (MLA's nope 128 + rope 64): q and k concatenated and
+    V zero-padded from 128 to 192 in a real buffer, the (192, 192) pair;
+    the first 128 output columns against the plain version on the
+    unpadded V, the last 64 zero."""
     B, H, vd, hd = 2, 16, 128, 192
     q = randn(dev, (B, S, H, hd), dtype, 11).transpose(1, 2)
     k = randn(dev, (B, T, H, hd), dtype, 12).transpose(1, 2)
@@ -555,13 +555,15 @@ def test_bucket_step_kernel_rejects_what_it_does_not_take(dev):
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
-def flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd, masked=False):
+def flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd, masked=False,
+                     hd_v=None):
     """``masked``: padding rows and a gap of keys no windowed row sees
     past; ``"dead"``: five padding rows in the middle of the second query
-    tile of every sequence, whose other rows keep every key of the tile."""
+    tile of every sequence, whose other rows keep every key of the tile;
+    ``hd_v``: V's own head dim (hd by default)."""
     q = randn(dev, (B, S, H, hd), dtype, 21).transpose(1, 2)
     k = randn(dev, (B, T, Hkv, hd), dtype, 22).transpose(1, 2)
-    v = randn(dev, (B, T, Hkv, hd), dtype, 23).transpose(1, 2)
+    v = randn(dev, (B, T, Hkv, hd_v or hd), dtype, 23).transpose(1, 2)
     qpos = (torch.arange(S, device=dev, dtype=torch.int32)
             + max(T - S, 0)).repeat(B, 1)
     kpos = torch.arange(T, device=dev, dtype=torch.int32).repeat(B, 1)
@@ -657,12 +659,90 @@ def test_flash_bwd_kernel_repeats_bit_identical_and_takes_strided_do(
 
 @pytest.mark.cuda
 def test_flash_bwd_routes_by_head_dim(dev):
-    """bf16 at head dims up to 128 takes the tensor-core kernels, at 160,
-    192 and 256 the scalar ones; fp32 always the scalar ones."""
+    """bf16 takes the tensor-core kernels at every head dim; fp32 always
+    the scalar ones."""
     for hd in tfa.HEAD_DIMS:
-        assert tfa.bwd_route(torch.bfloat16, hd) == (
-            "wgmma" if hd <= 128 else "fma")
+        assert tfa.bwd_route(torch.bfloat16, hd) == "wgmma"
         assert tfa.bwd_route(torch.float32, hd) == "fma"
+
+
+WIDE_PAIRS = [(160, 160), (192, 192), (192, 128), (256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,hd_v", WIDE_PAIRS)
+@pytest.mark.parametrize("B,H,Hkv,S,T,causal,window,masked", [
+    (1, 8, 8, 97, 97, True, 0, False),       # ragged, g 1
+    (2, 8, 2, 200, 333, True, 0, False),     # S != T, T % 32 != 0, g 4
+    (2, 10, 2, 90, 90, True, 16, True),      # fully masked rows, window
+    (1, 6, 6, 70, 150, False, 0, False),     # cross: every pair kept
+    (1, 4, 4, 31, 31, True, 0, False),       # S < 32: one partial tile
+])
+def test_flash_wide_head_dims_match_plain(dev, hd, hd_v, B, H, Hkv, S, T,
+                                          causal, window, masked):
+    """bf16 at head dims 160-256 and MLA's (192, 128), V at its own head
+    dim: the forward and the tensor-core backward (no producer warp,
+    32-row tiles) against the plain versions at 3e-2 + 3e-2 |x|."""
+    q, k, v, qpos, kpos = flash_bwd_inputs(dev, "bfloat16", B, H, Hkv, S,
+                                           T, hd, masked, hd_v)
+    do = randn(dev, (B, S, H, hd_v), "bfloat16", 44).transpose(1, 2)
+    opts = dict(scale=hd ** -0.5, causal=causal, window=window)
+    out, lse = tfa.flash_attention(q, k, v, qpos, kpos, return_lse=True,
+                                   **opts)
+    want_out, want_lse = tref.flash_attention_lse_ref(q, k, v, qpos, kpos,
+                                                      **opts)
+    assert out.shape == (B, H, S, hd_v)
+    close(out, want_out, "bfloat16")
+    dead = want_lse <= 0.5 * tref.NEG_INF
+    assert torch.equal(lse <= 0.5 * tref.NEG_INF, dead)
+    assert tfa.bwd_route(torch.bfloat16, hd) == "wgmma"
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos, **opts)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse, do, qpos, kpos,
+                                        **opts)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=BWD_TOL["bfloat16"],
+                                   rtol=BWD_TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,hd_v", WIDE_PAIRS)
+def test_flash_wide_head_dims_repeat_bit_identical(dev, hd, hd_v):
+    """No atomics at the wide head dims either: two calls, the same bits,
+    forward and backward (g 4, a dK/dV block walks its group)."""
+    q, k, v, qpos, kpos = flash_bwd_inputs(dev, "bfloat16", 2, 8, 2, 257,
+                                           257, hd, hd_v=hd_v)
+    do = randn(dev, (2, 257, 8, hd_v), "bfloat16", 44).transpose(1, 2)
+    runs = []
+    for _ in range(2):
+        out, lse = tfa.flash_attention(q, k, v, qpos, kpos,
+                                       scale=hd ** -0.5, return_lse=True)
+        runs.append((out, lse) + tfa.flash_attention_bwd(
+            q, k, v, out, lse, do, qpos, kpos, scale=hd ** -0.5))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,hd_v", [(128, 64), (192, 64), (256, 128),
+                                     (128, 192)])
+def test_flash_rejects_unsupported_head_dim_pairs(dev, dtype, hd, hd_v):
+    """A (hd, hd_v) pair outside ``HEAD_DIM_PAIRS`` raises in the wrapper,
+    forward and backward, before any launch."""
+    q, k, v, qpos, kpos = flash_bwd_inputs(dev, dtype, 1, 4, 4, 64, 64, hd,
+                                           hd_v=hd_v)
+    n = (tfa.LAUNCHES, tfa.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="hd_v"):
+        tfa.flash_attention(q, k, v, qpos, kpos, scale=hd ** -0.5)
+    lse = torch.zeros((1, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="hd_v"):
+        tfa.flash_attention_bwd(q, k, v, v, lse, v, qpos, kpos,
+                                scale=hd ** -0.5)
+    assert (tfa.LAUNCHES, tfa.BWD_LAUNCHES) == n
 
 
 @pytest.mark.cuda
@@ -674,8 +754,8 @@ def test_flash_function_grads_match_autograd_of_plain(dev, dtype, causal,
                                                       window, S, T, vd):
     """``ops.flash_attention`` (K2 forward, K2 backward) against torch
     autograd through the plain forward, on a loss of the output; ``vd``:
-    V zero-padded from vd to hd as the MLA prefill builds it, the
-    gradient leaving through the pad."""
+    V zero-padded from vd to hd in a real buffer, the gradient leaving
+    through the pad."""
     from repro_torch.kernels import ops
 
     B, H, Hkv, hd = 2, 8, 2, 192 if vd else 64
@@ -701,6 +781,39 @@ def test_flash_function_grads_match_autograd_of_plain(dev, dtype, causal,
     for g, x in zip(got, want):
         torch.testing.assert_close(g.float(), x.float(), atol=BWD_TOL[dtype],
                                    rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_function_own_v_width_grads_match_autograd_of_plain(dev,
+                                                                   dtype):
+    """``ops.flash_attention`` with V at its own head dim, MLA's (192,
+    128), as ``_mla_forward`` calls it: the output and (dq, dk, dv) of
+    the autograd Function (K2 forward and backward) against torch
+    autograd through the plain forward."""
+    from repro_torch.kernels import ops
+
+    B, H, S, hd, vd = 2, 8, 120, 192, 128
+    q0, k0, v0, qpos, kpos = flash_bwd_inputs(dev, dtype, B, H, H, S, S, hd,
+                                              hd_v=vd)
+    w = randn(dev, (B, H, S, vd), dtype, 46).float()
+    opts = dict(scale=hd ** -0.5, causal=True, window=0)
+
+    def run(fn):
+        q, k, v = (x.detach().requires_grad_() for x in (q0, k0, v0))
+        out = fn(q, k, v, qpos, kpos, **opts)
+        return (out,) + torch.autograd.grad((out.float() * w).sum(),
+                                            (q, k, v))
+
+    n = (tfa.LAUNCHES, tfa.BWD_LAUNCHES)
+    got = run(ops.flash_attention)
+    assert (tfa.LAUNCHES, tfa.BWD_LAUNCHES) == (n[0] + 1, n[1] + 1)
+    want = run(tref.flash_attention_ref)
+    assert got[0].shape == (B, H, S, vd)
+    for g, x in zip(got, want):
+        assert g.shape == x.shape
+        torch.testing.assert_close(g.detach().float(), x.detach().float(),
+                                   atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
 
 
 def scan_bwd_inputs(dev, b, c, h, p, n, decay="uniform"):

@@ -73,8 +73,8 @@ CASES = {   # B, H, Hkv, S, T, hd, causal, window, masked, vd
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_flash_attention_bwd_ref_matches_jax_vjp(case):
     """(dq, dk, dv) of the plain backward against ``jax.vjp`` of the
-    reference's ``_attend`` on the same mask; for MLA, V is zero-padded
-    from vd to hd as the port's prefill builds it, and dV's first vd
+    reference's ``_attend`` on the same mask; in the padded case V is
+    zero-padded from vd to hd (the (hd, hd) pair), and dV's first vd
     columns are held to the reference's gradient of the unpadded V."""
     B, H, Hkv, S, T, hd, causal, window, masked, vd = CASES[case]
     vd = vd or hd
@@ -159,6 +159,70 @@ def test_flash_attention_op_grads_match_autograd_of_plain(case):
     for g, want in zip(grads(tops.flash_attention),
                        grads(tref.flash_attention_ref)):
         close(g.detach(), want)
+
+
+@pytest.mark.parametrize("hd,vd", [(192, 128), (32, 16)])
+def test_flash_attention_op_own_v_width_matches_jax_blockwise(hd, vd):
+    """V at its own head dim, not padded: ``ops.flash_attention`` on CPU
+    tensors (the plain forward and backward) against the reference's
+    ``blockwise_attention`` handed V at its own width, as its MLA
+    prefill does, and ``jax.vjp`` of it: the output and (dq, dk, dv)."""
+    B, H, Hkv, S = 1, 4, 4, 21
+    rng = np.random.default_rng(hd + vd)
+    q, k = (rng.standard_normal((B, S, n, hd)).astype(np.float32)
+            for n in (H, Hkv))
+    v = rng.standard_normal((B, S, Hkv, vd)).astype(np.float32)
+    do = rng.standard_normal((B, S, H, vd)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    jp = jnp.asarray(pos)
+    out, vjp = jax.vjp(lambda a, b, c: jattn.blockwise_attention(
+        a, b, c, jp, jp, window=0, scale=hd ** -0.5, block_q=8),
+        jnp.asarray(q.copy()), jnp.asarray(k.copy()), jnp.asarray(v.copy()))
+    want = vjp(jnp.asarray(do.copy()))
+
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2).requires_grad_()
+                  for a in (q, k, v))
+    tp = torch.from_numpy(pos)
+    got = tops.flash_attention(tq, tk, tv, tp, tp, scale=hd ** -0.5,
+                               causal=True)
+    assert got.shape == (B, H, S, vd)
+    close(got.detach().transpose(1, 2), out)
+    grads = torch.autograd.grad(got, (tq, tk, tv),
+                                torch.from_numpy(do).transpose(1, 2))
+    for g, w, x in zip(grads, want, (q, k, v)):
+        assert g.transpose(1, 2).shape == x.shape
+        close(g.transpose(1, 2), w)
+
+
+def test_mla_prefill_hands_k2_v_at_its_own_width(monkeypatch):
+    """``_mla_forward`` calls ``ops.flash_attention`` with q and k at
+    nope + rope and V at ``v_head_dim``: no padded V buffer."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_arch("deepseek-v3-671b")),
+                              dtype="float32")
+    m = cfg.mla
+    params = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    seen = []
+    real = tops.flash_attention
+
+    def record(q, k, v, *args, **kwargs):
+        out = real(q, k, v, *args, **kwargs)
+        seen.append((q.shape[-1], k.shape[-1], v.shape[-1], out.shape[-1]))
+        return out
+
+    monkeypatch.setattr(tops, "flash_attention", record)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 13)).astype(np.int64))
+    with torch.no_grad():
+        logits, _, _ = model.forward(cfg, params, {"tokens": tokens})
+    assert torch.isfinite(logits).all()
+    hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    assert m.v_head_dim < hd
+    assert seen == [(hd, hd, m.v_head_dim, m.v_head_dim)] * cfg.num_layers
 
 
 @pytest.mark.parametrize("b,c,h,p,n,decay", [
