@@ -39,7 +39,8 @@ which must pass for the run to exit 0:
    attention, ``scaled_dot_product_attention`` (timed only; the port
    never calls it; no single PyTorch call computes K3's scan); the
    backward kernels at the trained shapes and at StableLM-12B's,
-   Gemma-7B's and DeepSeek-V3's MLA widths, K2's beside the autograd
+   Gemma-7B's and DeepSeek-V3's MLA widths (K2's forward also at
+   StableLM-12B's hd 160 and Gemma-7B's hd 256), K2's beside the autograd
    backward of ``scaled_dot_product_attention`` (timed only), with each
    of its kernels' device time;
 4. serve: StarCoder2-7B (dense), Zamba2-7B (hybrid: 81 Mamba2 layers
@@ -87,7 +88,18 @@ which must pass for the run to exit 0:
    at full width and cut depth (``FP32_TRAIN``) through the kernels
    against the same with ``kernels.ops`` patched to the plain versions
    on the card: the loss and every gradient leaf;
-6. simulate: the paper's main path.  A 3-day trace
+6. dryrun: ``launch.dryrun`` on the host, on the meta device, for all 10
+   architectures x 4 shapes at full size (parameters, argument bytes on
+   one card and per device on 16x16, whether they fit 80 GB, counted
+   FLOPs and unfused bytes, their times at the H100's peaks, the
+   bottleneck and the useful share); any failing case fails the phase.
+   For each config phase 5 trained, the dry run's argument bytes
+   (parameters, AdamW's state, the batch) must equal the device memory
+   the run had requested when its first step started, within
+   ``DRY_MEMORY_SLACK``, and ``memory_allocated`` within the caching
+   allocator's rounding; its roofline is printed beside the measured
+   step;
+7. simulate: the paper's main path.  A 3-day trace
    (``generate_trace(WorkloadSpec(days=3, scale=0.05, seed=0))``, about
    745k requests) through ``build_stack(...).simulate`` on the fully
    co-optimised ``lt-ua+plan`` stack (LT-UA scaling, the routing-aware
@@ -100,7 +112,7 @@ which must pass for the run to exit 0:
    parameters must equal the kernel's bit for bit, and the ILP targets
    its forecasts give are counted against the run's.
 
-7. vector: the paper's main path on the vector engine.
+8. vector: the paper's main path on the vector engine.
    ``run_experiment(ExperimentSpec(engine="vector"), device=cuda)`` over
    the same 3-day trace with the seven strategies of the reference's
    benchmarks (siloed, reactive, LT-I, LT-U, LT-UA, ``lt-ua+plan``,
@@ -109,7 +121,7 @@ which must pass for the run to exit 0:
    kernel (the launch count must equal the segments) and every hourly
    boundary's forecast fits one ``arma_fit`` batch across the fleet.
    Each Report is printed; the vector ``lt-ua+plan`` Report must lie
-   within the reference's vector-vs-event tolerance of phase 6's (0.02
+   within the reference's vector-vs-event tolerance of phase 7's (0.02
    completion, 10% GPU-hours and dollars).  The run is made once more
    under torch.profiler for the kernels' own device time and the run's
    device-busy share (the CUDA events around each launch also hold the
@@ -213,7 +225,7 @@ BWD_KERNELS = ("bwd_prep", "bwd_deadsum", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
 PORT_KERNELS = ("flash_fwd_wgmma", "flash_fwd", "decode_split_mma",
                 "decode_split", "decode_combine", "ssd_scan") + BWD_KERNELS
 SPIN_CYCLES = 4_000_000  # ~2 ms at H100 clocks: longer than any call's host time
-# The ARMA fit (phase 6): the lt-ua+plan stack of benchmarks/common.py
+# The ARMA fit (phase 7): the lt-ua+plan stack of benchmarks/common.py
 # (stack_spec(BenchSpec(), "lt-ua+plan")), written out: that module
 # imports jax.  Kernel and plain version round every op alike and must
 # agree bit for bit (ARMA_ATOL = 0).
@@ -229,7 +241,7 @@ ARMA_LENGTHS = (1, 8, 255, 257, 511, 2815, 2817, "longest")
 ARMA_LONGEST_STEPS = 20
 ARMA_REPLICAS = 8        # the timed batch of replicas of the run's rows
 FMA_LATENCY_CYCLES = 4   # one dependent fp32 FMA on Hopper
-# The vector engine (phase 7): the seven strategies of
+# The vector engine (phase 8): the seven strategies of
 # benchmarks/common.py:115-142 (stack_spec(BenchSpec(), s)), written out:
 # that module imports jax.  The bucket step's kernel and plain version do
 # the same float32 ops in the same order (BUCKET_ATOL = 0).
@@ -818,7 +830,8 @@ def time_kernels(dev, errs):
     StarCoder2-7B's widths (the row) and, in ``other_shapes``, at
     Zamba2-7B's hd = 112, Llama-4 Scout's and Pixtral-12B's widths,
     DeepSeek-V3's MLA prefill (q/k 192, V 128), Whisper-tiny's encoder,
-    cross-attention and decode; K3 at Zamba2-7B's prefill of 2000
+    cross-attention and decode (K2 also at StableLM-12B's hd 160 and
+    Gemma-7B's hd 256, which no served model runs); K3 at Zamba2-7B's prefill of 2000
     tokens; the backward kernels at the trained shapes (``bwd_row``: also
     StableLM-12B's hd 160 and Gemma-7B's hd 256; K3's at Mamba2-370M's
     B = 4, S = 2048)."""
@@ -939,6 +952,8 @@ def time_kernels(dev, errs):
     flash_row("whisper-tiny encoder", 1, 6, 6, 1500, 64, causal=False)
     flash_row("whisper-tiny cross", 1, 6, 6, 2000, 64, T=1500,
               causal=False)
+    flash_row("stablelm-12b", 1, 32, 8, 2048, 160)
+    flash_row("gemma-7b", 1, 16, 16, 2048, 256)
     decode_row("whisper-tiny self", 4, 6, 6, 4096, 64, fill)
     decode_row("whisper-tiny cross", 4, 6, 6, 1500, 64, [1499] * 4)
 
@@ -1373,6 +1388,15 @@ def expected_train_launches(cfg, steps: int, remat: bool):
             "ssd_scan_bwd": steps * scan}
 
 
+def device_memory(dev) -> dict:
+    """The bytes live tensors on ``dev`` asked the caching allocator for
+    (``requested``) and the bytes of the blocks it gave them
+    (``allocated``, ``torch.cuda.memory_allocated``)."""
+    return {"requested": torch.cuda.memory_stats(dev)[
+                "requested_bytes.all.current"],
+            "allocated": torch.cuda.memory_allocated(dev)}
+
+
 def train_run(dev, arch, cut, batch, seq, steps, remat, lr):
     """``train.loop.train`` on ``arch`` at full width (depth ``cut``) for
     ``steps`` steps of ``batch`` x ``seq`` synthetic tokens, AdamW on a
@@ -1382,7 +1406,11 @@ def train_run(dev, arch, cut, batch, seq, steps, remat, lr):
     tokens/s of each, the peak memory and the kernel launches against
     the expected counts.  Fails unless every gradient is present (the
     step raises on one left None) and finite (its global norm is), the
-    loss falls and the counts match.  Returns the counts."""
+    loss falls and the counts match.  Returns the counts and, for the
+    parameters, AdamW's state and the first batch as the first step
+    starts (before its backward), the device memory they were
+    ``requested`` and ``allocated`` (``device_memory``) and the
+    ``tensors`` they are; and ``step_s``, the steady step."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.train import check_fits, train_state_bytes
     from repro_torch.train import loop
@@ -1397,12 +1425,19 @@ def train_run(dev, arch, cut, batch, seq, steps, remat, lr):
         f"gradients, fp32 AdamW moments); B={batch} S={seq}, "
         f"{steps} steps, remat {remat}, peak lr {lr:g}")
     stats = []
+    held = {}
     make = loop.make_train_step
 
     def timed_factory(cfg_, opt_, remat=False):
         step = make(cfg_, opt_, remat=remat)
 
         def timed(params, state, batch_):
+            if not held:
+                now = device_memory(dev)
+                held.update({k: now[k] - base[k] for k in now})
+                held["tensors"] = (len(state.m) + len(state.v) + 1
+                                   + sum(1 for _ in params.parameters())
+                                   + len(batch_))
             if len(stats) == PROFILED_STEP:
                 out = profiled(f"training step {PROFILED_STEP}",
                                lambda: step(params, state, batch_),
@@ -1426,6 +1461,8 @@ def train_run(dev, arch, cut, batch, seq, steps, remat, lr):
     opt = AdamW(lr=cosine_schedule(lr, warmup=1, total=steps))
     data = DataConfig(batch_size=batch, seq_len=seq, seed=0)
     reset_model_counts()
+    gc.collect()
+    base = device_memory(dev)
     t0 = time.perf_counter()
     with mock.patch.object(loop, "make_train_step", timed_factory):
         out = loop.train(cfg, steps=steps, data=data, opt=opt, seed=0,
@@ -1459,7 +1496,7 @@ def train_run(dev, arch, cut, batch, seq, steps, remat, lr):
                          f"({stats[0]['loss']:.4f} -> "
                          f"{stats[-1]['loss']:.4f})")
     del out
-    return counts
+    return counts, dict(held, step_s=step_s)
 
 
 def check_fp32_train(dev, arch, cut, batch, seq) -> None:
@@ -1518,6 +1555,103 @@ def check_fp32_train(dev, arch, cut, batch, seq) -> None:
         raise SystemExit(f"fp32 train {arch}: the kernels' step disagrees "
                          f"with the plain versions'")
     del params, grads_k, grads_p
+
+
+# ---------------------------------------------------------------- dry run
+#: the dry run's argument bytes against the device memory the trained run
+#: asked for, for the same config and batch: equal, but for a stray
+#: scalar.  ``memory_allocated`` is larger by the caching allocator's
+#: rounding: each block is a multiple of 512 bytes, and a block carved
+#: from a larger free one is not split when 1 MiB or less would remain,
+#: so a tensor may hold up to 1 MiB + 511 bytes more than it asked for
+#: (2.2% of Mamba2-370M's 4.2 GB over its 1,300 tensors)
+DRY_MEMORY_SLACK = 1e-4
+ALLOCATOR_ROUNDING = 2**20 + 511     # bytes a tensor's block may add
+DRY_WORKERS = 6          # processes tracing the 40 cases on the host
+
+
+def dry_case(arch: str, shape: str):
+    """One case on the local mesh (traced) and on 16x16 (arguments only);
+    a pool worker's task."""
+    from repro_torch.launch import dryrun
+
+    return (dryrun.run_case(arch, shape, verbose=False),
+            dryrun.run_case(arch, shape, mesh="16x16", verbose=False))
+
+
+def dry_run(trained) -> None:
+    """``launch.dryrun`` on every ``ARCHS`` x ``SHAPES`` case at full size on
+    the meta device (host only, in DRY_WORKERS spawned processes); any
+    case that fails fails the phase.  Then, for each config the train
+    phase trained, the dry run's argument bytes at its depth and batch
+    against the device memory the run had requested when its first step
+    started (``DRY_MEMORY_SLACK``) and, within the allocator's rounding
+    (``ALLOCATOR_ROUNDING`` a tensor), against ``memory_allocated``; and
+    the dry run's roofline (the larger of its
+    counted FLOPs over the bf16 peak and its unfused bytes over HBM's
+    rate) beside the measured steady step: printed, not held."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    log(f"[dryrun] {len(ARCHS)} architectures x {len(SHAPES)} shapes at full "
+        f"size on the meta device, one H100 (local mesh) and 16x16; "
+        f"{DRY_WORKERS} processes")
+    cases = [(a, s) for a in ARCHS for s in SHAPES]
+    failed = []
+    with ProcessPoolExecutor(
+            DRY_WORKERS, mp_context=multiprocessing.get_context("spawn")) \
+            as pool:
+        futures = [pool.submit(dry_case, a, s) for a, s in cases]
+        for (a, s), fut in zip(cases, futures):
+            try:
+                local, prod = fut.result()
+            except Exception as e:  # every failing case is reported
+                failed.append(f"{a} x {s}: {type(e).__name__}: {e}")
+                log(f"  {a} x {s}: FAILED: {type(e).__name__}: {e}")
+                continue
+            log(f"  {dryrun.format_case(local)}; 16x16: "
+                f"{prod['argument_bytes_per_device'] / 1e9:.3f} GB a device")
+    if failed:
+        raise SystemExit(f"dryrun: {len(failed)} of {len(cases)} cases "
+                         f"failed: {failed}")
+    log(f"  {len(cases)} cases in {time.perf_counter() - t0:.1f} s wall")
+
+    for arch, cut, batch, seq, _, remat, _ in TRAINED:
+        cfg = served_config(arch, cut)
+        shape = ShapeConfig("trained", seq, batch, "train")
+        case = dryrun.build_case(cfg, shape, remat=remat)
+        want = dryrun.argument_bytes(case, make_local_mesh(),
+                                     dryrun.rules_for(cfg, shape, 1))
+        run = trained[arch]
+        rel = abs(run["requested"] - want) / want
+        over = run["allocated"] - run["requested"]
+        flops, nbytes = dryrun.measure(case.fn)
+        compute_s = flops / PEAK_FLOPS[torch.bfloat16]
+        memory_s = nbytes / HBM_BYTES_PER_S
+        step_s = run["step_s"]
+        log(f"  {cfg.name} ({depth_note(cfg)}), B={batch} S={seq}: dry-run "
+            f"arguments {want:,} B; the card, before the first backward: "
+            f"requested {run['requested']:,} B, rel {rel:.2e} (slack "
+            f"{DRY_MEMORY_SLACK:g}), allocated {run['allocated']:,} B (rel "
+            f"{(run['allocated'] - want) / want:.2e}; rounding {over:,} B "
+            f"over {run['tensors']} tensors, at most "
+            f"{run['tensors'] * ALLOCATOR_ROUNDING:,}); roofline compute "
+            f"{compute_s * 1e3:.1f} ms, memory (unfused) "
+            f"{memory_s * 1e3:.1f} ms, max {max(compute_s, memory_s) * 1e3:.1f}"
+            f" ms against the measured step {step_s * 1e3:.1f} ms: "
+            f"{max(compute_s, memory_s) / step_s:.3f} of it (compute "
+            f"{compute_s / step_s:.3f})")
+        if rel > DRY_MEMORY_SLACK or not \
+                0 <= over <= run["tensors"] * ALLOCATOR_ROUNDING:
+            raise SystemExit(f"dryrun {arch}: the dry run's argument bytes "
+                             f"disagree with the card's allocation")
+    log(f"[dryrun] done in {time.perf_counter() - t0:.1f} s wall")
 
 
 # ---------------------------------------------------------------- simulate
@@ -1832,8 +1966,8 @@ def vector_specs():
 
 
 def vector_experiment():
-    """The seven strategies over phase 6's 3-day trace on the vector
-    engine, with the fit and ILP caches emptied (phase 6 and its replay
+    """The seven strategies over phase 7's 3-day trace on the vector
+    engine, with the fit and ILP caches emptied (phase 7 and its replay
     filled them with this trace's fits and plans), so a run fits and
     solves its own."""
     from repro_torch.api import ExperimentSpec
@@ -1894,7 +2028,7 @@ def report_vector(vrun, launches, event_run) -> None:
     """Print each strategy's Report and the batches' control-plane
     counters; fail unless every segment launched the kernel, every run
     completed, and the vector ``lt-ua+plan`` Report is within the
-    reference's vector-vs-event tolerance of phase 6's."""
+    reference's vector-vs-event tolerance of phase 7's."""
     results, segs = vrun["results"], vrun["segs"]
     for r in results:
         log(f"  {r.strategy:10s} [{r.engine}] GPU-hours "
@@ -1942,7 +2076,7 @@ def report_vector(vrun, launches, event_run) -> None:
     d_frac = vec_frac - ev_frac
     d_hours = vec.total_instance_hours / ev.total_instance_hours() - 1.0
     d_dollars = vec.total_gpu_dollars / ev.total_gpu_dollars() - 1.0
-    log(f"  lt-ua+plan, vector vs event loop (phase 6): completion "
+    log(f"  lt-ua+plan, vector vs event loop (phase 7): completion "
         f"{vec_frac:.5f} vs {ev_frac:.5f} ({d_frac:+.5f}, tol "
         f"{COMPLETION_ABS_TOL}), GPU-hours {d_hours:+.4%}, dollars "
         f"{d_dollars:+.4%} (tol {HOURS_REL_TOL:.0%})")
@@ -2008,7 +2142,7 @@ class PlainStepGraph:
 
 def profile_vector(dev, launches) -> None:
     """The vector run once more under torch.profiler (device activity
-    only): the bucket_step kernels' own device time (phase 7's events
+    only): the bucket_step kernels' own device time (phase 8's events
     around each launch also hold the host's enqueue gaps), the fit
     kernels', and the run's device-busy share of its wall time (which
     the profiler inflates)."""
@@ -2222,12 +2356,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    trained = {}
     for arch, cut, batch, seq, steps, remat, lr in TRAINED:
         log(f"[train] {arch}, full width, "
             f"{depth_note(served_config(arch, cut))}, train.loop.train, "
             f"B={batch} S={seq}, {steps} steps")
-        by_run[f"train {arch}"] = train_run(dev, arch, cut, batch, seq,
-                                            steps, remat, lr)
+        by_run[f"train {arch}"], trained[arch] = train_run(
+            dev, arch, cut, batch, seq, steps, remat, lr)
         gc.collect()             # the timing hooks form a cycle
         torch.cuda.empty_cache()
         log(f"  freed: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
@@ -2244,6 +2379,8 @@ def main() -> int:
         if row["launches"] <= 0:
             raise SystemExit(f"{row['name']} never launched on the served "
                              f"and trained paths")
+
+    dry_run(trained)
 
     log(f"[simulate] lt-ua+plan, event loop, {SIM_WORKLOAD['days']:g} days, "
         f"forecast fits on the card")

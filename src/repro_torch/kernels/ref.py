@@ -1,9 +1,10 @@
 """Plain versions of the kernels (the correctness oracles).
 
 Same signatures and layouts as ``repro.kernels.ref``.  Attention: fp32
-math, the finite ``NEG_INF`` mask value (a row whose keys are all
-masked returns mean(V), not 0 or NaN), output in ``q.dtype``.  Inputs
-may be strided views.  ``ops`` runs these for CPU tensors;
+math (the weights rounded to V's dtype under ``flags.ATTN_BF16_STREAM``),
+the finite ``NEG_INF`` mask value (a row whose keys are all masked
+returns mean(V), not 0 or NaN), output in ``q.dtype``.  Inputs may be
+strided views.  ``ops`` runs these for CPU tensors;
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
 The ARMA fit (``arma_fit_ref``) stands in for the JAX program
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models import flags
 
 NEG_INF = -1e30
 
@@ -42,6 +45,14 @@ def _masked_scores(q, k, mask, scale: float):
     return s.masked_fill(~mask[:, None, None], NEG_INF)
 
 
+def _stream(w, v):
+    """The softmax weights as the weighted sum over V takes them: fp32, or
+    with ``flags.ATTN_BF16_STREAM`` rounded to V's dtype first (the
+    reference's bf16 operands with fp32 accumulation; the products of
+    bf16 values are exact in fp32, so widening them loses nothing)."""
+    return w.to(v.dtype).float() if flags.ATTN_BF16_STREAM else w
+
+
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, scale: float,
                         causal: bool = True, window: int = 0):
     """q: (B,H,S,hd); k: (B,Hkv,T,hd); v: (B,Hkv,T,hd_v); q_pos: (B,S);
@@ -62,7 +73,7 @@ def _prefill_ref(q, k, v, q_pos, k_pos, scale, causal, window, lse=False):
     B, H, S, _ = q.shape
     s = _masked_scores(q, k, _prefill_mask(q_pos, k_pos, causal, window),
                        scale)
-    w = torch.softmax(s, dim=-1)
+    w = _stream(torch.softmax(s, dim=-1), v)
     o = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
     o = o.reshape(B, H, S, v.shape[-1]).to(q.dtype)
     if not lse:
@@ -120,7 +131,7 @@ def decode_attention_ref(q, k, v, k_pos, cur_pos, *, scale: float,
     if window:
         mask &= (cur - k_pos) < window
     s = s.masked_fill(~mask[:, None, None], NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    w = _stream(torch.softmax(s, dim=-1), v)
     o = torch.einsum("bkgt,bktd->bkgd", w, v.float())
     return o.reshape(B, H, v.shape[-1]).to(q.dtype)
 

@@ -51,28 +51,32 @@ class Attention(nn.Module):
         if cfg.use_mla:
             m = cfg.mla
             qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-            self.wq_a = param((d, m.q_lora_rank), dt, device)
-            self.wq_b = param((m.q_lora_rank, H * qk), dt, device)
+            down, up = ("embed", "lora"), ("lora", "qkv")
+            self.wq_a = param((d, m.q_lora_rank), dt, device, down)
+            self.wq_b = param((m.q_lora_rank, H * qk), dt, device, up)
             self.wkv_a = param((d, m.kv_lora_rank + m.qk_rope_head_dim), dt,
-                               device)
+                               device, down)
             self.wk_b = param((m.kv_lora_rank, H * m.qk_nope_head_dim), dt,
-                              device)
-            self.wv_b = param((m.kv_lora_rank, H * m.v_head_dim), dt, device)
-            self.wo = param((H * m.v_head_dim, d), dt, device)
+                              device, up)
+            self.wv_b = param((m.kv_lora_rank, H * m.v_head_dim), dt, device,
+                              up)
+            self.wo = param((H * m.v_head_dim, d), dt, device,
+                            ("qkv", "embed"))
             self.q_norm = Norm(cfg, device, width=m.q_lora_rank,
                                with_bias=False)
             self.kv_norm = Norm(cfg, device, width=m.kv_lora_rank,
                                 with_bias=False)
             return
         qd, kvd = H * hd, cfg.num_kv_heads * hd
-        self.wq = param((d, qd), dt, device)
-        self.wk = param((d, kvd), dt, device)
-        self.wv = param((d, kvd), dt, device)
-        self.wo = param((qd, d), dt, device)
+        w = ("embed", "qkv")
+        self.wq = param((d, qd), dt, device, w)
+        self.wk = param((d, kvd), dt, device, w)
+        self.wv = param((d, kvd), dt, device, w)
+        self.wo = param((qd, d), dt, device, ("qkv", "embed"))
         if cfg.use_qkv_bias:
-            self.bq = param((qd,), dt, device)
-            self.bk = param((kvd,), dt, device)
-            self.bv = param((kvd,), dt, device)
+            self.bq = param((qd,), dt, device, ("qkv",))
+            self.bk = param((kvd,), dt, device, ("qkv",))
+            self.bv = param((kvd,), dt, device, ("qkv",))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -108,6 +112,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return {"k": torch.zeros(kv, dtype=dt, device=device),
             "v": torch.zeros(kv, dtype=dt, device=device),
             "pos": pos}
+
+
+def cache_logical_axes(cfg: ModelConfig, long_context: bool = False) -> Dict:
+    """Logical axes of one layer's cache (kv_seq shardable for long
+    context; ``long_context`` is unused, as in the reference)."""
+    seq = "kv_seq"
+    if cfg.use_mla:
+        return {"ckv": ("batch", seq, "lora"),
+                "krope": ("batch", seq, None),
+                "pos": ("batch", seq)}
+    return {"k": ("batch", seq, "kv_heads", "head_dim"),
+            "v": ("batch", seq, "kv_heads", "head_dim"),
+            "pos": ("batch", seq)}
 
 
 def _proj(params: Attention, x, w: str, heads: int, cfg: ModelConfig):

@@ -21,7 +21,7 @@ gradients across under the same mapping.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +98,26 @@ def _stack_of(name: str):
     return None
 
 
+def reference_groups(lm: nn.Module) -> Dict[str, Tuple[bool, List]]:
+    """The port's parameters under the reference tree's dotted keys
+    (``layers.mixer.in_proj``): ``(True, [(name, parameter), ...])`` with
+    a stack's layers in order for a leaf the reference stacks over its
+    layers, ``(False, [(name, parameter)])`` for any other; unstacked
+    leaves first, in the module's order."""
+    groups: Dict[str, Tuple[bool, List]] = {}
+    stacked: Dict[str, Dict[int, Tuple[str, nn.Parameter]]] = {}
+    for name, p in lm.named_parameters():
+        where = _stack_of(name)
+        if where is None:
+            groups[name] = (False, [(name, p)])
+        else:
+            stack, i, rest = where
+            stacked.setdefault(stack + rest, {})[i] = (name, p)
+    for key, layers in stacked.items():
+        groups[key] = (True, [layers[i] for i in range(len(layers))])
+    return groups
+
+
 def reference_leaves(lm: nn.Module,
                      grads: bool = False) -> Dict[str, np.ndarray]:
     """The reference tree's leaves by dotted key path (``layers.mixer.
@@ -105,20 +125,14 @@ def reference_leaves(lm: nn.Module,
     native numpy arrays: ``lm``'s values, or its parameters' gradients
     (``grads``; raises when one is missing)."""
     flat: Dict[str, np.ndarray] = {}
-    stacked: Dict[str, Dict[int, np.ndarray]] = {}
-    for name, p in lm.named_parameters():
-        t = p.grad if grads else p
-        if t is None:
-            raise ValueError(f"{name}: no gradient")
-        arr = t.detach().float().cpu().numpy()
-        where = _stack_of(name)
-        if where is None:
-            flat[name] = arr
-        else:
-            stack, i, rest = where
-            stacked.setdefault(stack + rest, {})[i] = arr
-    for key, layers in stacked.items():
-        flat[key] = np.stack([layers[i] for i in range(len(layers))])
+    for key, (stacked, named) in reference_groups(lm).items():
+        arrs = []
+        for name, p in named:
+            t = p.grad if grads else p
+            if t is None:
+                raise ValueError(f"{name}: no gradient")
+            arrs.append(t.detach().float().cpu().numpy())
+        flat[key] = np.stack(arrs) if stacked else arrs[0]
     return flat
 
 

@@ -58,7 +58,7 @@ class EncDec(nn.Module):
         super().__init__()
         self.embed = Embedding(cfg, device)
         self.enc_pos = param((cfg.encoder_seq, cfg.d_model),
-                             model_dtype(cfg), device)
+                             model_dtype(cfg), device, (None, "embed"))
         self.enc_layers = nn.ModuleList(
             EncBlock(cfg, device) for _ in range(cfg.encoder_layers))
         self.enc_norm = Norm(cfg, device)

@@ -24,10 +24,18 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised, frozen parameter (filled by ``init`` or convert)."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def param(shape, dtype, device, axes) -> nn.Parameter:
+    """An uninitialised, frozen parameter (filled by ``init`` or convert)
+    that records the logical axis of each of its dimensions as
+    ``logical_axes``: the tuple the reference boxes the leaf with
+    (``P(value, axes)``), read by ``dist.sharding.axes_of``."""
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} do not name the {len(shape)} "
+                         f"dimensions of {tuple(shape)}")
+    p = nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                     requires_grad=False)
+    p.logical_axes = tuple(axes)
+    return p
 
 
 @torch.no_grad()
@@ -47,16 +55,17 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
 class Norm(nn.Module):
     """``scale`` (fp32) and, for layernorm, ``bias`` (fp32), ``width``
     wide (``d_model`` unless given: MLA's ``q_norm``/``kv_norm`` are
-    the LoRA ranks wide and have no bias)."""
+    the LoRA ranks wide, have no bias and no named axis)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  width: Optional[int] = None,
                  with_bias: Optional[bool] = None):
         super().__init__()
+        axes = (None,) if width else ("embed_act",)
         width = width or cfg.d_model
-        self.scale = param((width,), torch.float32, device)
+        self.scale = param((width,), torch.float32, device, axes)
         if cfg.norm == "layernorm" if with_bias is None else with_bias:
-            self.bias = param((width,), torch.float32, device)
+            self.bias = param((width,), torch.float32, device, axes)
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
@@ -115,10 +124,10 @@ class MLP(nn.Module):
                  d_ff: Optional[int] = None):
         super().__init__()
         dt, d, f = model_dtype(cfg), cfg.d_model, d_ff or cfg.d_ff
-        self.wi = param((d, f), dt, device)
-        self.wo = param((f, d), dt, device)
+        self.wi = param((d, f), dt, device, ("embed", "mlp"))
+        self.wo = param((f, d), dt, device, ("mlp", "embed"))
         if cfg.act in ("silu", "geglu"):
-            self.wg = param((d, f), dt, device)
+            self.wg = param((d, f), dt, device, ("embed", "mlp"))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in self.parameters():
@@ -149,13 +158,15 @@ class Embedding(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         dt = model_dtype(cfg)
-        self.tok = param((cfg.padded_vocab, cfg.d_model), dt, device)
+        self.tok = param((cfg.padded_vocab, cfg.d_model), dt, device,
+                         ("vocab", "embed"))
         if not cfg.tie_embeddings:
-            self.head = param((cfg.d_model, cfg.padded_vocab), dt, device)
+            self.head = param((cfg.d_model, cfg.padded_vocab), dt, device,
+                              ("embed", "vocab"))
         if cfg.pos_emb == "learned":
             rows = (max(cfg.encoder_seq, 32_768) if cfg.is_encoder_decoder
                     else 32_768)
-            self.pos = param((rows, cfg.d_model), dt, device)
+            self.pos = param((rows, cfg.d_model), dt, device, (None, "embed"))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         dense_init_(self.tok, generator, in_axis=1)

@@ -31,6 +31,11 @@ run under ``torch.inference_mode()``.  ``remat`` recomputes each
 layer in the backward pass instead of keeping its activations
 (``torch.utils.checkpoint``, one layer per checkpoint), as the
 reference's ``jax.checkpoint`` does.
+
+``make_inputs``, ``merge_prefill_cache`` and ``cache_logical_axes`` are
+the reference's helpers of the same names; the dry run
+(``launch.dryrun``) builds its inputs and caches with them on the meta
+device.
 """
 from __future__ import annotations
 
@@ -172,3 +177,91 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
             cfg, batch, max_seq, window,
             layers=len(tfm._hybrid_groups(cfg)), device=dev)
     return cache
+
+
+def merge_prefill_cache(decode_cache: Dict, prefill_cache: Dict) -> Dict:
+    """Write a prefill-produced cache into the (larger) decode cache's
+    slots in place and return it.  Leaves of equal shape are copied;
+    leaves differing along one axis (the sequence axis) are written at
+    offset 0 of that axis."""
+    for name, dst in decode_cache.items():
+        src = prefill_cache[name]
+        if isinstance(dst, dict):
+            merge_prefill_cache(dst, src)
+            continue
+        diff = [i for i, (a, b) in enumerate(zip(dst.shape, src.shape))
+                if a != b]
+        if len(diff) > 1 or dst.ndim != src.ndim:
+            raise ValueError(f"{name}: cannot write {tuple(src.shape)} into "
+                             f"{tuple(dst.shape)}")
+        view = dst.narrow(diff[0], 0, src.shape[diff[0]]) if diff else dst
+        view.copy_(src)
+    return decode_cache
+
+
+def cache_logical_axes(cache: Dict, _path=()) -> Dict:
+    """A decode cache's logical axis tuples, leaf by leaf (by leaf name
+    and rank, as the reference's): every leaf leads with the stacked
+    layer axis."""
+    out = {}
+    for name, leaf in cache.items():
+        path = _path + (name,)
+        if isinstance(leaf, dict):
+            out[name] = cache_logical_axes(leaf, path)
+            continue
+        extra = ("layer",)
+        if name in ("k", "v"):
+            if "cross" in path:
+                # encoder cross-KV: fixed encoder_seq (e.g. 1500), not
+                # shardable over the data axes; replicate the seq dim
+                out[name] = extra + ("batch", None, "kv_heads", "head_dim")
+            else:
+                out[name] = extra + ("batch", "kv_seq", "kv_heads",
+                                     "head_dim")
+        elif name == "ckv":
+            out[name] = extra + ("batch", "kv_seq", "lora")
+        elif name == "krope":
+            out[name] = extra + ("batch", "kv_seq", None)
+        elif name == "pos":
+            out[name] = extra + ("batch", "kv_seq")
+        elif name == "conv":
+            out[name] = extra + ("batch", None, "ssm_inner")
+        elif name == "ssm":
+            out[name] = extra + ("batch", "ssm_heads", None, "state")
+        else:
+            out[name] = (None,) * leaf.ndim
+    return out
+
+
+def make_inputs(cfg: ModelConfig, batch: int, seq_len: int, *,
+                device: DeviceLike,
+                generator: Optional[torch.Generator] = None) -> Dict:
+    """Model inputs with the reference's keys, shapes and dtypes: int32
+    tokens, frames or patches in the model dtype (a VLM's ``Pn =
+    min(num_patches, max(1, seq_len // 4))`` patches and ``seq_len - Pn``
+    tokens).  Without ``generator``, empty tensors on ``device`` (shapes
+    only: ``"meta"`` for the dry run); with one, tokens uniform in the
+    vocabulary and embeddings 0.02 * normal, drawn on ``device``."""
+    dev = resolve_device(device)
+    dt = model_dtype(cfg)
+
+    def tok(shape):
+        if generator is None:
+            return torch.empty(shape, dtype=torch.int32, device=dev)
+        return torch.randint(0, cfg.vocab_size, shape, generator=generator,
+                             dtype=torch.int32, device=dev)
+
+    def emb(shape):
+        if generator is None:
+            return torch.empty(shape, dtype=dt, device=dev)
+        return (torch.randn(shape, generator=generator, device=dev)
+                * 0.02).to(dt)
+
+    if cfg.family == "audio":
+        return {"frames": emb((batch, cfg.encoder_seq, cfg.d_model)),
+                "tokens": tok((batch, seq_len))}
+    if cfg.family == "vlm":
+        Pn = min(cfg.num_patches, max(1, seq_len // 4))
+        return {"patches": emb((batch, Pn, cfg.d_model)),
+                "tokens": tok((batch, seq_len - Pn))}
+    return {"tokens": tok((batch, seq_len))}

@@ -1,18 +1,20 @@
 """Mixture-of-Experts FFN: top-k router + capacity-bounded dispatch (port of ``repro.models.moe``).
 
 Prefill ranks each (token, expert) pair within its expert's group by
-one stable argsort of the flat expert ids, writes the kept pairs into
-an (E*C, D) buffer (C = ceil(T*K/E * capacity_factor); pairs past C are
-dropped, the reference's dump row), runs the expert FFNs as products
-batched over the experts, and gathers the rows back weighted by their
-gates.  Decode gathers each token's top-k expert weights instead (the
-reference's default; its ``MOE_DECODE_DISPATCH`` flag is off).  The
-expert products are plain large matrix products, which the reference
-also leaves outside any Pallas kernel, so they run as ``torch.bmm`` /
-``einsum`` here.
+one stable argsort of the flat expert ids, writes the pairs into an
+(E*C + 1, D) buffer (C = ceil(T*K/E * capacity_factor); pairs past C
+are dropped into the last row, the reference's dump row), runs the
+expert FFNs as products batched over the experts, and gathers the rows
+back weighted by their gates.  Decode gathers each token's top-k expert
+weights instead (the reference's default) or, with
+``flags.MOE_DECODE_DISPATCH`` and at least as many pairs as experts,
+runs the dispatch too.  The expert products are plain large matrix
+products, which the reference also leaves outside any Pallas kernel, so
+they run as ``torch.bmm`` / ``einsum`` here.
 
-``DROPPED`` counts the (token, expert) pairs the prefill dispatch has
-dropped at capacity since it was last set to 0.
+``DROPPED`` counts the (token, expert) pairs the dispatch has dropped at
+capacity since it was last set to 0 (not on the meta device, which
+holds no values).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import flags
 from repro_torch.models.layers import (MLP, apply_mlp, dense_init_,
                                        model_dtype, param)
 
@@ -39,10 +42,12 @@ class MoE(nn.Module):
         super().__init__()
         dt, d, f, E = (model_dtype(cfg), cfg.d_model, cfg.moe_d_ff,
                        cfg.num_experts)
-        self.router = param((d, E), torch.float32, device)
-        self.wi = param((E, d, f), dt, device)
-        self.wg = param((E, d, f), dt, device)
-        self.wo = param((E, f, d), dt, device)
+        up = ("expert", "embed", "expert_mlp")
+        self.router = param((d, E), torch.float32, device, ("embed", None))
+        self.wi = param((E, d, f), dt, device, up)
+        self.wg = param((E, d, f), dt, device, up)
+        self.wo = param((E, f, d), dt, device,
+                        ("expert", "expert_mlp", "embed"))
         if cfg.num_shared_experts:
             self.shared = MLP(cfg, device,
                               d_ff=cfg.num_shared_experts * cfg.moe_d_ff)
@@ -73,14 +78,17 @@ def _route(params: MoE, xt, cfg: ModelConfig):
 
 def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
     """x: (B, S, D) -> (y, aux_loss); decode gathers the experts' weights
-    per token (no capacity, aux 0.0)."""
+    per token (no capacity, aux 0.0) unless ``flags.MOE_DECODE_DISPATCH``
+    and the step holds at least as many pairs as experts.  Every shape
+    follows from the config and x's, so the dispatch also runs on the
+    meta device (the dry run)."""
     global DROPPED
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.moe_top_k
     T = B * S
     xt = x.reshape(T, D)
     probs, gates, eidx = _route(params, xt, cfg)
-    if decode:
+    if decode and not (flags.MOE_DECODE_DISPATCH and T * K >= E):
         y = _gather_experts(params, xt, gates, eidx, cfg)
         if "shared" in params._modules:
             y = y + apply_mlp(params.shared, xt, cfg)
@@ -88,7 +96,8 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
 
     # load-balance aux loss (Switch/DeepSeek style)
     e_flat = eidx.reshape(-1)                                   # (T*K,)
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = torch.zeros(E, dtype=e_flat.dtype, device=x.device)
+    counts.index_add_(0, e_flat, torch.ones_like(e_flat))
     f_e = counts.float() / (T * K)
     aux = E * torch.sum(f_e * probs.mean(0)) * cfg.router_aux_coef
 
@@ -100,17 +109,18 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
     pos[order] = (torch.arange(T * K, device=x.device)
                   - group_start[e_flat[order]])
     keep = pos < C
-    kept = keep.nonzero()[:, 0]
-    DROPPED += T * K - int(kept.numel())
-    dest = e_flat * C + pos
-    # kept pairs have distinct destinations: copy them, no accumulation
-    buf = x.new_zeros((E * C, D))
-    buf[dest[kept]] = xt[kept // K]
-    eo = _expert_products(params, buf.view(E, C, D), cfg)      # (E, C, D)
+    if not keep.is_meta:          # a meta tensor holds no values to count
+        DROPPED += T * K - int(keep.sum())
+    # kept pairs have distinct rows; dropped ones all land on the dump
+    # row E*C, which no expert reads (a copy, no accumulation)
+    dest = torch.where(keep, e_flat * C + pos, E * C)
+    buf = x.new_zeros((E * C + 1, D))
+    buf[dest] = xt.repeat_interleave(K, dim=0)
+    eo = _expert_products(params, buf[:E * C].view(E, C, D), cfg)
 
     # combine: each kept pair's row weighted by its gate, summed over K
-    rows = x.new_zeros((T * K, D))
-    rows[kept] = eo.reshape(E * C, D)[dest[kept]]
+    rows = eo.reshape(E * C, D)[torch.where(keep, dest, 0)]
+    rows = torch.where(keep[:, None], rows, 0)
     rows = rows * gates.reshape(-1, 1).to(rows.dtype)
     y = rows.view(T, K, D).sum(1)
     if "shared" in params._modules:

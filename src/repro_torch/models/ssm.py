@@ -42,14 +42,16 @@ class SSM(nn.Module):
         d, di, N, H = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
                        cfg.ssm_nheads)
         conv_ch = di + 2 * N
-        self.in_proj = param((d, 2 * di + 2 * N + H), dt, device)
-        self.conv_w = param((CONV_WIDTH, conv_ch), dt, device)
-        self.conv_b = param((conv_ch,), dt, device)
-        self.A_log = param((H,), f32, device)
-        self.D = param((H,), f32, device)
-        self.dt_bias = param((H,), f32, device)
-        self.gate_norm = param((di,), f32, device)
-        self.out_proj = param((di, d), dt, device)
+        self.in_proj = param((d, 2 * di + 2 * N + H), dt, device,
+                             ("embed", "ssm_inner"))
+        self.conv_w = param((CONV_WIDTH, conv_ch), dt, device,
+                            ("conv", "ssm_inner"))
+        self.conv_b = param((conv_ch,), dt, device, ("ssm_inner",))
+        self.A_log = param((H,), f32, device, ("ssm_heads",))
+        self.D = param((H,), f32, device, ("ssm_heads",))
+        self.dt_bias = param((H,), f32, device, ("ssm_heads",))
+        self.gate_norm = param((di,), f32, device, ("ssm_inner",))
+        self.out_proj = param((di, d), dt, device, ("ssm_inner", "embed"))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -87,6 +89,11 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, *, layers: int = 0,
         "ssm": torch.zeros(lead + (batch, H, Pd, N), dtype=torch.float32,
                            device=device),
     }
+
+
+def ssm_cache_logical_axes(cfg: ModelConfig) -> Dict:
+    return {"conv": ("batch", None, "ssm_inner"),
+            "ssm": ("batch", "ssm_heads", None, "state")}
 
 
 # --------------------------------------------------------------------------
