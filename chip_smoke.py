@@ -15,7 +15,8 @@ which must pass for the run to exit 0:
    their plain PyTorch versions on the card, in bf16 and fp32, at
    StarCoder2-7B's and Zamba2-7B's attention widths (head_dim 128 and
    112, each also at the other's GQA group, g = 9 and g = 1), a long
-   cache (T = 8192 and 16384), Gemma's head_dim 256 and head_dim 160,
+   cache (T = 8192 and 16384), Gemma's head_dim 256, head_dim 160 and
+   head_dim 96 (the train example's, B = 8, S = T = 128),
    DeepSeek-V3's MLA head_dim 192 (H = Hkv = 128, S = T = 1999 and a
    ragged 333), Llama-4 Scout's group of 5, Whisper-tiny's bidirectional
    encoder (S = T = 1500), its cross-attention (S != T) and its decode
@@ -134,7 +135,21 @@ which must pass for the run to exit 0:
    boundaries) for one replica and for 8, beside its byte bound, the
    chain floor of one bucket's dependent ops (``BUCKET_CHAIN``), the
    eager plain step and the plain step captured in a CUDA graph (a
-   measurement only).
+   measurement only);
+9. analysis: reprolint on the card's host, which has no JAX: the AST
+   tier (``repro_torch.analysis.run_lint``) over ``src/repro_torch`` must
+   find no violation and no stale suppression, and the trace tier
+   (``run_trace(device=cuda)``) must pass T1-T4 against the vector
+   engine's segment and the batched forecast fit through the real
+   ``bucket_step`` and ``arma_fit`` kernels: no host sync in either
+   (recorded by a dispatch mode and under
+   ``torch.cuda.set_sync_debug_mode("error")``), no float64, an honest
+   segment-cache key, at most two carries alive across five segments
+   of a real ``VectorBatch`` with ``memory_allocated`` flat; each
+   check's time is printed;
+10. examples: the four ``examples/torch_*.py`` (``EXAMPLES``), each in a
+    process of its own on the card with its counterpart's defaults: each
+    must exit 0, and prints its wall time.
 
 The bucket step is also checked in phase 3 against its plain version bit
 for bit on seeded segments (``bucket_step.synthetic_case``): one replica
@@ -575,6 +590,10 @@ FLASH_CASES = [
                                       hd=256)),
     ("hd=160 g=4 S=T=2048", dict(B=1, H=32, Hkv=8, S=2048, T=2048,
                                  hd=160)),
+    ("train example hd=96 B=8 S=T=128", dict(B=8, H=8, Hkv=8, S=128,
+                                             T=128, hd=96)),
+    ("hd=96 g=4 ragged S=T=333", dict(B=1, H=8, Hkv=2, S=333, T=333,
+                                      hd=96)),
 ]
 #: K3's checked shapes (``scan_case`` arguments), forward and backward
 SCAN_CASES = [
@@ -2154,6 +2173,10 @@ def profile_vector(dev, launches) -> None:
     exp = vector_experiment()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # one trivial kernel first: a run on the card once recorded every
+        # launch of the run but its first, the siloed segment
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_experiment(exp, jobs=1, device=dev)
         torch.cuda.synchronize()
@@ -2171,7 +2194,9 @@ def profile_vector(dev, launches) -> None:
     if n_bucket != launches["bucket_step"]:
         raise SystemExit(f"vector: the profiled run launched {n_bucket} "
                          f"bucket_step kernels, the first "
-                         f"{launches['bucket_step']}")
+                         f"{launches['bucket_step']}; recorded: "
+                         + ", ".join(f"{k} x{n} {s:.4f} s"
+                                     for k, n, s in bucket))
 
 
 def replay_vector(vrun, errs) -> int:
@@ -2284,6 +2309,91 @@ def time_bucket(dev, vrun, errs, launches):
         **shapes[0], other_shapes=shapes[1:],
         plain_on="card (eager PyTorch, one op at a time)",
         launches_by_run={"vector (7 strategies)": launches["bucket_step"]})
+
+
+# ---------------------------------------------------------------- analysis
+def analysis(dev) -> dict:
+    """reprolint on the card's host, which has no JAX: the AST tier
+    (``run_lint``) over ``src/repro_torch`` must find no violation and no
+    stale suppression; the trace tier (``run_trace``) runs T1-T4 on the
+    card against the vector engine's segment and the batched forecast fit
+    through the real ``bucket_step`` and ``arma_fit`` kernels (T1 under
+    ``torch.cuda.set_sync_debug_mode("error")``, T4 with
+    ``memory_allocated`` flat across segments) and must find no violation.
+    Returns the kernels' launches in the trace tier, set to 0 just before
+    it and read just after."""
+    from repro_torch.analysis import run_lint
+    from repro_torch.analysis.trace import run_trace
+    from repro_torch.kernels import arma_fit, bucket_step
+
+    t0 = time.perf_counter()
+    lint = run_lint()
+    log(f"  AST tier (R0-R5, R7, R8): {lint.files_checked} files of "
+        f"src/repro_torch, {len(lint.violations)} violation(s), "
+        f"{len(lint.suppressed)} suppressed, {len(lint.warnings)} "
+        f"stale suppression(s) (W0) in {time.perf_counter() - t0:.2f} s")
+    for v in lint.violations + lint.warnings:
+        log(f"    {v.render()}")
+    bucket_step.LAUNCHES = arma_fit.LAUNCHES = 0
+    result = run_trace(device=dev)
+    launches = {"bucket_step": bucket_step.LAUNCHES,
+                "arma_fit": arma_fit.LAUNCHES}
+    log(f"  trace tier on {result.device}: {len(result.checks)} checks, "
+        f"{len(result.violations)} violation(s) in {result.elapsed_s:.2f} s; "
+        f"launches {launches}")
+    for c in result.checks:
+        log(f"    {c.rule} {c.target}: {'ok' if c.ok else 'FAIL'} in "
+            f"{c.seconds:.3f} s{': ' + c.detail if c.detail else ''}")
+    if lint.violations or lint.warnings or result.violations:
+        raise SystemExit("analysis: reprolint found violations")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"analysis: the trace tier launched no kernel: "
+                         f"{launches}")
+    return launches
+
+
+# ---------------------------------------------------------------- examples
+#: the four examples of the port, run at their counterparts' defaults
+EXAMPLES = ("torch_quickstart.py", "torch_autoscale_simulation.py",
+            "torch_serve_cluster.py", "torch_train_small.py")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def examples() -> None:
+    """Each of ``EXAMPLES`` in a process of its own on the card, from the
+    checkout's ``examples/``: it must exit 0 within EXAMPLE_TIMEOUT_S.
+    Prints each one's wall time and the last lines of its output (the
+    whole output goes to ``build/examples/<name>.log``)."""
+    import os
+    import signal
+
+    out_dir = ROOT / "build" / "examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    failed = []
+    for name in EXAMPLES:
+        logfile = out_dir / f"{Path(name).stem}.log"
+        t0 = time.perf_counter()
+        with open(logfile, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / name)],
+                stdout=fh, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                start_new_session=True)
+            try:
+                rc = proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)   # workers too
+                proc.wait()
+                rc = "timeout"
+        wall = time.perf_counter() - t0
+        tail = [line for line in logfile.read_text().splitlines()
+                if line.strip()][-3:]
+        log(f"  {name}: exit {rc} in {wall:.1f} s wall")
+        for line in tail:
+            log(f"    {line}")
+        if rc != 0:
+            failed.append(f"{name} (exit {rc})")
+    if failed:
+        raise SystemExit(f"examples failed: {failed}")
 
 
 def main() -> int:
@@ -2401,6 +2511,23 @@ def main() -> int:
         if row["name"] == "arma_fit":
             row["launches_by_run"]["vector (7 strategies)"] = \
                 vec_launches["arma_fit"]
+
+    log("[analysis] reprolint: the AST tier over src/repro_torch, the "
+        "trace tier (T1-T4) on the card")
+    t0 = time.perf_counter()
+    trace_launches = analysis(dev)
+    for row in rows:
+        if row["name"] in trace_launches:
+            row["launches_by_run"]["trace tier"] = trace_launches[row["name"]]
+    log(f"[analysis] done in {time.perf_counter() - t0:.1f} s wall")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[examples] the {len(EXAMPLES)} examples of the port, each in a "
+        f"process of its own on the card")
+    t0 = time.perf_counter()
+    examples()
+    log(f"[examples] done in {time.perf_counter() - t0:.1f} s wall")
 
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
         f" wall")

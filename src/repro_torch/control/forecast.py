@@ -122,7 +122,11 @@ def _fit_arma_batch(y, init, p: int, q: int, steps: int = 400,
     Returns (params dict of (S,), (S, p), (S, q) tensors, final loss
     (S,)) on ``y``'s device."""
     n_rows = y.shape[0]
-    packed = torch.from_numpy(_pack(init, n_rows, p, q)).to(y.device)
+    packed = torch.from_numpy(_pack(init, n_rows, p, q))
+    if y.is_cuda:
+        # from pinned memory, asynchronously: a pageable copy would make
+        # the host wait for the stream (the trace tier's T1)
+        packed = packed.pin_memory().to(y.device, non_blocking=True)
     prm, loss = ops.arma_fit(y, packed, p, q, steps, lr)
     return {"c": prm[:, 0], "phi": prm[:, 1:1 + p],
             "theta": prm[:, 1 + p:]}, loss
@@ -407,6 +411,7 @@ class BatchForecastEngine:
                 params, _ = _fit_arma_batch(ybatch.to(self.device), init,
                                             self.p, self.q,
                                             steps=self.fit_steps)
+                # reprolint: disable=R8 -- one copy a fit batch (one batch per row length): the host's forecast recursion reads the fitted parameters
                 params = {k: v.cpu().numpy() for k, v in params.items()}
                 self.batches += 1
                 for i, (sig, _, _) in enumerate(fit_rows):

@@ -22,8 +22,8 @@
 // launch first.  The tensor maps describe the model's transposed
 // (B,S,H,hd) views in place: no copies or transposes, but 16-byte
 // aligned base addresses and strides, which the wrapper checks.  Head
-// dims are padded to a multiple of 64 (16, 32 and 64 to 64, 112 and 128
-// to 128, 160 to 192) by the TMA zero fill; 192 and 256 need none.  V
+// dims are padded to a multiple of 64 (16, 32 and 64 to 64, 96, 112 and
+// 128 to 128, 160 to 192) by the TMA zero fill; 192 and 256 need none.  V
 // and O take their own padded width: at MLA's (192, 128) the P V product
 // and O's accumulator are 128 wide.
 //
@@ -625,6 +625,7 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
       case 16:
       case 32:
       case 64: return launch_wgmma<64, 64>(a, st);
+      case 96:
       case 112: return launch_wgmma<128, 128>(a, st);
       case 128: return launch_wgmma<128, 128>(a, st);
       case 160:
@@ -637,6 +638,7 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
     case 16: return launch<float, 16, 16>(a, st);
     case 32: return launch<float, 32, 32>(a, st);
     case 64: return launch<float, 64, 64>(a, st);
+    case 96: return launch<float, 96, 96>(a, st);
     case 112: return launch<float, 112, 112>(a, st);
     case 128: return launch<float, 128, 128>(a, st);
     case 160: return launch<float, 160, 160>(a, st);

@@ -452,6 +452,7 @@ cudaError_t dispatch(const Args& a, cudaStream_t st) {
     case 16: return launch<T, 16, 16>(a, st);
     case 32: return launch<T, 32, 32>(a, st);
     case 64: return launch<T, 64, 64>(a, st);
+    case 96: return launch<T, 96, 96>(a, st);
     case 112: return launch<T, 112, 112>(a, st);
     case 128: return launch<T, 128, 128>(a, st);
     case 160: return launch<T, 160, 160>(a, st);

@@ -50,6 +50,7 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
     case 16:
     case 32:
     case 64: err = bwg::launch<64, 64>(w, st); break;
+    case 96:
     case 112:
     case 128: err = bwg::launch<128, 128>(w, st); break;
     case 160:

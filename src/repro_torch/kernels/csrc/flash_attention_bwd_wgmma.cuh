@@ -1,9 +1,10 @@
 // Prefill flash attention backward on Hopper's tensor cores (sm_90a):
 // bf16 inputs at every (hd, hd_v) pair K2 takes.  Included by
 // flash_attention_bwd_bf16.cu, whose entry point routes them all here:
-// q/k padded to HDP = 64 (hd 16, 32, 64), 128 (112, 128), 192 (160, 192)
-// or 256 by the TMA zero fill, V, O and dO to HDPV = HDP, or 128 at MLA's
-// (192, 128).  fp32 takes the scalar kernels of flash_attention_bwd.cuh.
+// q/k padded to HDP = 64 (hd 16, 32, 64), 128 (96, 112, 128), 192 (160,
+// 192) or 256 by the TMA zero fill, V, O and dO to HDPV = HDP, or 128 at
+// MLA's (192, 128).  fp32 takes the scalar kernels of
+// flash_attention_bwd.cuh.
 //
 // Replaces what the JAX package gets from XLA's autodiff of its jnp
 // attention, `_attend` / `blockwise_attention` in

@@ -37,7 +37,7 @@ LAUNCHES = 0
 #: launches of the backward kernel since the count was last set to 0
 BWD_LAUNCHES = 0
 
-HEAD_DIMS = (16, 32, 64, 112, 128, 160, 192, 256)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 160, 192, 256)
 #: the (hd, hd_v) pairs the kernels take: V at q/k's head dim, and MLA's
 #: q/k 192 (nope 128 + rope 64) with V 128
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)

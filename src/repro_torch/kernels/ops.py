@@ -106,7 +106,14 @@ def arma_fit(y, init, p: int, q: int, steps: int, lr: float):
 def bucket_segment(layout, consts, prm, carry, xs, b0: int, b1: int):
     """Buckets b0..b1-1 of the vector engine for R replicas: consts (NC,),
     prm (R, K), carry (R, F), xs (S, X), all fp32 packed as ``layout``
-    (``ref.BucketLayout``).  Returns (carry (R, F), ys (R, b1-b0, Y))."""
+    (``ref.BucketLayout``).  Returns (carry (R, F), ys (R, b1-b0, Y)).
+
+    The carry handoff: both paths write the segment's carry to a fresh
+    buffer, never into ``carry``, so while a segment is in flight two
+    carries are alive, its input and its output.  A caller that rebinds
+    its carry to the output (``VectorBatch.run``) frees the input and
+    holds one carry between segments; the trace tier's T4 checks that
+    no more stay alive."""
     if carry.is_cuda:
         return _bucket.bucket_segment(layout, consts, prm, carry, xs, b0, b1)
     _bucket.check_args(layout, consts, prm, carry, xs, b0, b1)

@@ -675,7 +675,9 @@ def bucket_step_ref(lay: BucketLayout, consts, prm, carry, x, b):
     first = pri[regions[None, None, :],
                 torch.argmax(bp.to(torch.uint8), dim=3)]
     dest = where(bp.any(dim=3), first, fallback[:, :, None])
-    thr_mat = torch.nn.functional.one_hot(dest, J).to(torch.float32)
+    # one-hot by comparison: ``F.one_hot`` reads the indices' range on
+    # the host on the CPU (the trace tier's T1)
+    thr_mat = (dest[..., None] == regions).to(torch.float32)
     om = carry["omega"] * alive[:, :, None, :].to(torch.float32)
     rs = _fold(om, 3)[..., None]
     om = where(rs > eps, om / lo(rs, eps), thr_mat)

@@ -131,6 +131,7 @@ def reference_leaves(lm: nn.Module,
             t = p.grad if grads else p
             if t is None:
                 raise ValueError(f"{name}: no gradient")
+            # reprolint: disable=R8 -- a host copy of the model is the point (checkpoints, tests): each leaf crosses once, with no device-side staging buffer
             arrs.append(t.detach().float().cpu().numpy())
         flat[key] = np.stack(arrs) if stacked else arrs[0]
     return flat

@@ -137,17 +137,11 @@ def seg_cache_stats() -> Dict[str, int]:
             "evictions": 0, "entries": len(_SEG_CACHE)}
 
 
-def _segments(st: _Static) -> Dict:
+def _build_segment(st: _Static) -> Dict:
     """The packed layout of this static config and its per-cell
-    constants (``kernels.ref.BUCKET_CONSTS``, float32), cached
-    process-wide so repeat runs and sweep batches sharing a group key
-    build them once; ``"on"`` holds a copy per device."""
-    key = st.key()
-    hit = _SEG_CACHE.get(key)
-    if hit is not None:
-        _SEG_CACHE_STATS["hits"] += 1
-        return hit
-    _SEG_CACHE_STATS["misses"] += 1
+    constants (``kernels.ref.BUCKET_CONSTS``, float32): what a
+    ``_SEG_CACHE`` entry holds, and what the trace tier's T3 holds
+    ``_Static.key()`` to."""
     lay = BucketLayout(st.M, st.P, st.J, st.L, st.dt)
     consts = np.zeros(lay.NC, np.float32)
     lay.pack_into(consts, {"kv": st.kv, "ptps": st.ptps, "tbt0": st.tbt0,
@@ -155,7 +149,20 @@ def _segments(st: _Static) -> Dict:
                            "swap_b": st.swap_b, "local_b": st.local_b,
                            "remote_b": st.remote_b},
                   lay.consts_shapes, lay.consts_off)
-    _SEG_CACHE[key] = {"layout": lay, "consts": consts, "on": {}}
+    return {"layout": lay, "consts": consts, "on": {}}
+
+
+def _segments(st: _Static) -> Dict:
+    """``_build_segment(st)``, cached process-wide so repeat runs and
+    sweep batches sharing a group key build them once; ``"on"`` holds a
+    copy of the constants per device."""
+    key = st.key()
+    hit = _SEG_CACHE.get(key)
+    if hit is not None:
+        _SEG_CACHE_STATS["hits"] += 1
+        return hit
+    _SEG_CACHE_STATS["misses"] += 1
+    _SEG_CACHE[key] = _build_segment(st)
     return _SEG_CACHE[key]
 
 

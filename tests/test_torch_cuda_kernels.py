@@ -76,6 +76,8 @@ def close(got, want, dtype):
     (2, 8, 2, 150, 150, 112, 0, "contiguous"),  # (B, H, S, hd) buffers
     (1, 9, 1, 1024, 8192, 128, 0, "view"),  # T >= 8192
     (1, 4, 2, 160, 160, 160, 0, "view"),    # hd 160: 64-key tiles
+    (8, 8, 8, 128, 128, 96, 0, "view"),     # hd 96: the train example
+    (1, 9, 1, 200, 333, 96, 32, "view"),    # hd 96, g 9, S != T, window
 ])
 def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd, window,
                                     layout):
@@ -599,6 +601,8 @@ def flash_bwd_inputs(dev, dtype, B, H, Hkv, S, T, hd, masked=False,
     (2, 36, 4, 200, 200, 128, True, 0, "dead"),   # dead rows, g 9
     (1, 40, 8, 200, 200, 128, True, 0, False),    # g 5
     (1, 8, 8, 150, 150, 16, True, 0, False),      # hd 16, g 1
+    (8, 8, 8, 128, 128, 96, True, 0, False),      # hd 96: the train example
+    (2, 10, 2, 90, 90, 96, True, 16, True),       # hd 96, masked rows, g 5
 ])
 def test_flash_bwd_kernel_matches_plain(dev, dtype, B, H, Hkv, S, T, hd,
                                         causal, window, masked):
@@ -929,3 +933,34 @@ def test_train_cli_on_card(dev, capsys):
 
     assert train_cli.main(["--arch", "gemma-7b", "--steps", "10"]) == 0
     assert "(improved)" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_trace_tier_on_the_card(dev):
+    """reprolint's trace tier (T1-T4) on the card: the real bucket_step
+    and arma_fit kernels, T1 under the sync debug mode "error", the
+    carry's memory flat across segments."""
+    from repro_torch.analysis.trace import TRACE_RULES, run_trace
+
+    result = run_trace(device=dev)
+    assert not result.violations, [v.render() for v in result.violations]
+    assert {c.rule for c in result.checks} == set(TRACE_RULES)
+    assert result.device.startswith("cuda")
+
+
+@pytest.mark.cuda
+def test_trace_t1_fires_on_host_syncs_on_the_card(dev):
+    """T1's two detectors on the card: the dispatch mode records a
+    tensor read on the host and a copy to the CPU, and the sync debug
+    mode raises on them; the fit's pinned init copy trips neither."""
+    from repro_torch.analysis.trace import audit_call, canonical_fit
+
+    x = torch.arange(4, dtype=torch.float32, device=dev)
+    syncs, _ = audit_call(lambda: x.sum().item(), dev)
+    assert any("_local_scalar_dense" in s for s in syncs)
+    assert any("synchronizing CUDA call" in s for s in syncs)
+    syncs, _ = audit_call(lambda: x.cpu(), dev)
+    assert any("copied to the CPU" in s for s in syncs)
+    fit = canonical_fit(dev)
+    fit()
+    assert audit_call(fit, dev) == ([], [])

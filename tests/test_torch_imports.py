@@ -26,7 +26,8 @@ def test_imports_with_jax_and_repro_blocked():
         "    importlib.import_module(name)\n"
         "for name in ('repro_torch.train', 'repro_torch.data',\n"
         "             'repro_torch.launch.train', 'repro_torch.train.loop',\n"
-        "             'repro_torch.data.pipeline'):\n"
+        "             'repro_torch.data.pipeline', 'repro_torch.analysis',\n"
+        "             'repro_torch.analysis.trace'):\n"
         "    assert name in names, name\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
