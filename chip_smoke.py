@@ -239,6 +239,9 @@ BWD_KERNELS = ("bwd_prep", "bwd_deadsum", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
                "bwd_dsum", "bwd_dkdv", "bwd_dq")
 PORT_KERNELS = ("flash_fwd_wgmma", "flash_fwd", "decode_split_mma",
                 "decode_split", "decode_combine", "ssd_scan") + BWD_KERNELS
+#: the Hopper kernels the build phase logs instantiation by instantiation
+WGMMA_KERNELS = ("flash_fwd_wgmma", "flash_fwd_wide", "decode_split_mma",
+                 "bwd_dkdv_wgmma", "bwd_dq_wgmma")
 SPIN_CYCLES = 4_000_000  # ~2 ms at H100 clocks: longer than any call's host time
 # The ARMA fit (phase 7): the lt-ua+plan stack of benchmarks/common.py
 # (stack_spec(BenchSpec(), "lt-ua+plan")), written out: that module
@@ -368,6 +371,34 @@ def time_ms(fn, flush, reps: int = 10, warmup: int = 2) -> float:
             raise SystemExit("time_ms: the host outran a spin of "
                              f"{spin} cycles")
     return sum(times) / reps
+
+
+def kernel_resources(text: str):
+    """The Hopper kernels of an ``nvcc -Xptxas -v`` log one by one: a list
+    of (kernel, its template arguments, registers, spill store bytes)
+    for each instantiation of ``WGMMA_KERNELS``, and the instantiations
+    whose wgmmas ptxas serialised, each with its reason (C7512: too few
+    registers; C7510, C7515 and others: what else stopped the
+    pipeline)."""
+    names = "|".join(WGMMA_KERNELS)
+
+    def readable(mangled):
+        m = re.search(rf"({names})I((?:Li\d+E)+)", mangled)
+        return (m[1], ",".join(re.findall(r"\d+", m[2]))) if m \
+            else (mangled, "")
+
+    found = [
+        (*readable(m[1]), int(m[3]),
+         int((re.search(r"(\d+) bytes spill stores", m[2]) or [0, "0"])[1]))
+        for m in re.finditer(r"Compiling entry function '(\S+)'"
+                             r"([\s\S]*?)Used (\d+) registers", text)
+        if re.search(rf"({names})I", m[1])]
+    serial = ["{}<{}> ({}: {})".format(*readable(fn), code, why.strip())
+              for code, why, fn in re.findall(
+                  r"\((C75\d\d)\) Potential Performance Loss: "
+                  r"wgmma.mma_async instructions are serialized ([^']*?)"
+                  r"(?:in the function|in function)? '(\S+)'", text)]
+    return found, serial
 
 
 def ranged(name: str, fn):
@@ -655,6 +686,10 @@ def check_kernels(dev):
         tol = TOL[dtype]
         for label, kw in FLASH_CASES:
             args, opts = flash_case(dev, dtype, gen, **kw)
+            route = fa.fwd_route(dtype, kw["hd"])
+            if route != expected_fwd_route(dtype, kw["hd"]):
+                failed.append(f"flash_attention {label} {dtype}: {route} "
+                              f"route")
             got = fa.flash_attention(*args, **opts)
             want = ref.flash_attention_ref(*args, **opts)
             failed += report("flash_attention", label, dtype, got, want,
@@ -681,6 +716,15 @@ def check_kernels(dev):
     if failed:
         raise SystemExit(f"kernel check failed: {failed}")
     return errs
+
+
+def expected_fwd_route(dtype, hd: int) -> str:
+    """The kernel K2's forward must take: for bf16 the narrow wgmma kernel
+    up to a padded head dim of 128 and the wide one above it, for fp32
+    the scalar FMA kernel (never TF32)."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "wide" if hd > 128 else "wgmma"
 
 
 def expected_bwd_route(dtype, hd: int) -> str:
@@ -875,6 +919,7 @@ def time_kernels(dev, errs):
         q, k, v, _, _ = args
         vd = vd or hd
         kept = S * (S + 1) // 2 if causal else S * T   # kept (q, k) pairs
+        route = fa.fwd_route(bf16, hd)
         cases.append(dict(
             name="flash_attention", dtype=bf16,
             fn=lambda: fa.flash_attention(*args, **opts),
@@ -887,9 +932,11 @@ def time_kernels(dev, errs):
             + B * (S + T) * 4,
             shape=f"{label}: B={B} H={H} Hkv={Hkv} S={S} T={T} hd={hd}"
                   + (f" V {vd}" if vd < hd else "")
-                  + f" bf16 {'causal' if causal else 'every pair kept'}",
+                  + f" bf16 {'causal' if causal else 'every pair kept'}"
+                  + f", {route} route",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:26"))
+            replaces="src/repro/kernels/flash_attention.py:26",
+            extra=dict(fwd_route=route)))
 
     def bwd_row(label, B, H, Hkv, S, hd, T=None, causal=True, vd=None):
         """K2's backward at K2's shapes: dq, dk, dv from the kernel's
@@ -2430,21 +2477,12 @@ def main() -> int:
                                 r"stores", text):
             if int(n):
                 log(f"    {n} bytes spilled by {fn}")
-        # the Hopper kernels one by one: <padded head dims> registers and
-        # spill stores
-        found = [
-            (m[1], m[2] + (f",{m[3]}" if m[3] else ""), m[5],
-             (re.search(r"(\d+) bytes spill stores", m[4]) or [0, "0"])[1])
-            for m in re.finditer(
-                r"Compiling entry function '\S*?(flash_fwd_wgmma|"
-                r"decode_split_mma|bwd_dkdv_wgmma|bwd_dq_wgmma)"
-                r"ILi(\d+)E(?:Li(\d+)E)?\S*'([\s\S]*?)Used (\d+) registers",
-                text)]
+        found, serial = kernel_resources(text)
         if found:
             log("    " + ", ".join(f"{k}<{d}> {r} registers, {n} bytes "
                                    f"spilled" for k, d, r, n in found))
-        for fn in re.findall(r"\(C7512\)[^']*'(\S+)'", text):
-            log(f"    wgmma serialized for lack of registers in {fn}")
+        for fn in serial:
+            log(f"    wgmma serialized in {fn}")
 
     log("[kernels] kernel vs plain PyTorch version on the card")
     errs = check_kernels(dev)

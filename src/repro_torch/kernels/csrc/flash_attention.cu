@@ -10,22 +10,26 @@
 // so a row whose keys are all masked returns mean(V), as the reference
 // does.  Online softmax in fp32.
 //
-// Two kernels, one function.
+// Three kernels, one function.
 //
-// bf16: `flash_fwd_wgmma`, built for Hopper (design note above it).  One
-// block per (128-row q tile, head, batch), two consumer warpgroups and a
-// producer warp; K/V tiles arrive by TMA into a 2-stage ring on
-// mbarriers; S = Q K^T and O += P V run on wgmma (fp32 accumulation, P
-// rounded to bf16 as FlashAttention does); the softmax runs in base 2;
-// each kv tile is classified up front as EMPTY (skipped), FULL (no mask
-// evaluated) or MIXED (masked per score); the heaviest causal q tiles
-// launch first.  The tensor maps describe the model's transposed
-// (B,S,H,hd) views in place: no copies or transposes, but 16-byte
-// aligned base addresses and strides, which the wrapper checks.  Head
-// dims are padded to a multiple of 64 (16, 32 and 64 to 64, 96, 112 and
-// 128 to 128, 160 to 192) by the TMA zero fill; 192 and 256 need none.  V
-// and O take their own padded width: at MLA's (192, 128) the P V product
-// and O's accumulator are 128 wide.
+// bf16: two kernels built for Hopper (design notes above each), one
+// block per (128-row q tile, head, batch) and two warpgroups of 64 query
+// rows; K/V tiles arrive by TMA on mbarriers; S = Q K^T and O += P V run
+// on wgmma (fp32 accumulation, P rounded to bf16 as FlashAttention
+// does); the softmax runs in base 2; each kv tile is classified up front
+// as EMPTY (skipped), FULL (no mask evaluated) or MIXED (masked per
+// score); the heaviest causal q tiles launch first.  `flash_fwd_wgmma`
+// ("narrow", head dims padded to 64 or 128) adds a producer warp and a
+// 2-stage ring of 128-key tiles; `flash_fwd_wide` (padded to 192 or 256,
+// and MLA's (192, 128)) has no producer warp, so that its threads may
+// hold up to 255 registers, and sizes its tiles to those widths.  The
+// tensor maps describe the model's transposed (B,S,H,hd) views in place:
+// no copies or transposes, but 16-byte aligned base addresses and
+// strides, which the wrapper checks.  Head dims are padded to a multiple
+// of 64 (16, 32 and 64 to 64, 96, 112 and 128 to 128, 160 to 192) by the
+// TMA zero fill; 192 and 256 need none.  V and O take their own padded
+// width: at MLA's (192, 128) the P V product and O's accumulator are 128
+// wide.
 //
 // Both write each row's log-sum-exp, in natural-log units of the scaled
 // scores (lse = m + log l), into `lse` (B,H,S) fp32 when it is not null:
@@ -42,7 +46,7 @@
 // Bound.  About 2*B*H*S*T*hd multiply-adds under the causal mask (4 FLOPs
 // per kept (q,k,d) triple: QK^T and PV), against 989 TFLOP/s bf16 tensor
 // cores on an H100 SXM (67 TFLOP/s fp32 without them): operations, not
-// bytes, at every served shape.  What the wgmma kernel leaves on the
+// bytes, at every served shape.  What the narrow kernel leaves on the
 // table: the softmax of one warpgroup is not overlapped with the other's
 // products (FlashAttention-3's ping-pong), nor with its own next S
 // product, and a padded head dim (112 of 128) wastes products.
@@ -278,7 +282,8 @@ constexpr uint8_t EMPTY = 0, FULL = 1, MIXED = 2;
 // q/k and v head dims padded to a multiple of 64
 template <int HDP, int HDPV>
 struct Tile {
-  static constexpr int BN = HDP <= 128 ? 128 : 64;  // keys per kv tile
+  static_assert(HDP <= 128, "wider head dims take the wide kernel");
+  static constexpr int BN = 128;                    // keys per kv tile
   static constexpr int NBOX = HDP / 64;             // TMA boxes per row
   static constexpr int NBOXV = HDPV / 64;           // ... of a V row
   static constexpr int Q_BYTES = BM * HDP * 2;
@@ -577,6 +582,496 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------
+// bf16 inputs above a padded 128: the "wide" Hopper kernel, at padded
+// (HDP, HDPV) = (192, 192) (hd 160 and 192), (192, 128) (MLA) and (256,
+// 256).
+// Same function, grid and tile classes as `flash_fwd_wgmma`; laid out
+// for the registers and shared memory that those widths need.
+//
+// Registers.  A consumer thread holds O (HDPV / 2 floats), one tile of
+// scores S (BN / 2) and P in bf16 (BN / 4).  At (256, 256) that is 176
+// registers before descriptors, addresses and row state, more than the
+// 168 that ptxas gives a 288-thread block (the narrow kernel's producer
+// warp).  So there is no producer warp: 256 threads,
+// `__launch_bounds__(256, 1)`, up to 255 registers a thread.  The K and
+// V rings are refilled from inside the loop by whichever consumer warp is
+// the last of the eight to be done with a stage (a per-stage count in
+// shared memory), with the live tile STAGES on, so neither warpgroup
+// waits for the other except through the ring's depth.  Each k step's
+// wgmma descriptor is formed where it is issued (`desc_lo`): held across
+// the loop, Q's alone took 32 registers.
+//
+// Overlap (FlashAttention-3's intra-warpgroup pipelining).  A warpgroup
+// issues S(t) = Q K(t)^T, then O += P(t-1) V(t-1), waits for S(t) alone
+// (`wgmma.wait_group 1`) and runs tile t's softmax in S's registers
+// while the P V product is on the tensor cores; only then does it wait
+// for that product, round P to bf16 and rescale O.  P kept twice (the
+// fragments in flight and the next tile's) ran ptxas short, and it
+// serialised every wgmma.  K and V have their own rings, so K(t)'s stage
+// is refilled as soon as S(t) is formed, and V's a tile later.
+//
+// Tiles.  BN keys a tile, 2 stages deep, to fit 227 KB (`Layout`):
+// (256, 256) 64 keys, 2 stages (192 KB); (192, 128) 128 keys, 2 stages
+// (208 KB); (192, 192) 96 keys, 2 stages (192 KB).  hd 160 runs as 192:
+// S over its true 10 k steps of 16 was no faster.  The alternatives
+// measured, in PERF.md §6: no overlap, FlashAttention-3's ping-pong
+// between the warpgroups, 64 keys x 3 stages at (192, 192), 64 x 3 and
+// 96 x 2 at (192, 128), key positions read from global memory.
+//
+// Order.  Under the causal mask the last q tiles keep the most keys and
+// launch first.  Once the K/V of a sequence's heads outgrow L2 (MLA's
+// 128 heads: 164 MB at 2000 tokens), heads go in chunks of about one
+// block per SM, each chunk's q tiles heaviest first, so that the blocks
+// in flight read K/V from L2 rather than device memory.
+//
+// Masks.  The live (non-EMPTY) tiles are listed once, in order, with
+// their classes; a MIXED tile's key positions are staged per warp in
+// shared memory (one coalesced read a tile) while the products run.
+// The softmax runs in base 2 on `ex2.approx`.
+namespace wide {
+
+using bf16 = __nv_bfloat16;
+using wg::EMPTY;
+using wg::FULL;
+using wg::MIXED;
+
+constexpr int BM = 128;             // query rows per block
+constexpr int THREADS = 256;        // two warpgroups of 64 rows
+constexpr int WARPS = THREADS / 32;
+constexpr int STAGES = 2;           // K and V ring depth
+
+// The class of a kv tile for a q tile, from the live query positions
+// [qmin, qmax] (qpad: a live row has q_pos < 0) and the tile's live key
+// positions [kmin, kmax] (hole: a key is masked or past T).
+__device__ __forceinline__ uint8_t tile_class(int qmin, int qmax, bool qpad,
+                                              int kmin, int kmax, bool hole,
+                                              int causal, int window) {
+  if (qmin > qmax || kmin > kmax || (causal && kmin > qmax) ||
+      (window && qmin - kmax >= window))
+    return EMPTY;
+  if (!qpad && !hole && (!causal || kmax <= qmin) &&
+      (!window || qmax - kmin < window))
+    return FULL;
+  return MIXED;
+}
+
+// q/k rows at the padded head dim HDP, V and O at the padded HDPV; BN
+// keys a tile.
+template <int HDP, int HDPV, int BN>
+struct Layout {
+  static constexpr int NBOX = HDP / 64;    // TMA boxes per q/k row
+  static constexpr int NBOXV = HDPV / 64;  // ... of a V row
+  static constexpr int Q_BYTES = BM * HDP * 2;
+  static constexpr int K_BYTES = BN * HDP * 2;
+  static constexpr int V_BYTES = BN * HDPV * 2;
+  static constexpr int RING = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
+  // after the ring (byte offsets): a row of BN key positions per warp,
+  // mean(V) per warpgroup, the barriers (q; K full, V full per stage),
+  // the K and V release counts per stage, the block's stats (q min, q
+  // max, a padded row, live tiles, masked rows per warpgroup); then one
+  // int per kv tile: its class, then the live tiles' list
+  static constexpr int POS = RING;
+  static constexpr int MEANV = POS + WARPS * BN * 4;
+  static constexpr int BARS = MEANV + 2 * HDPV * 4;
+  static constexpr int COUNTS = BARS + 8 * (1 + 2 * STAGES);
+  static constexpr int STATS = COUNTS + 4 * 2 * STAGES;
+  static constexpr int TILES = STATS + 4 * 8;
+  static size_t smem_bytes(int ntk) { return 1024 + TILES + 4 * ntk; }
+  // a consumer thread's registers across a tile: S, P, O
+  static constexpr int REGS = BN / 2 + BN / 4 + HDPV / 2;
+  static_assert(BN % 32 == 0 && REGS <= 176,
+                "a wide tile must leave registers for addresses and rows");
+};
+
+// A swizzled tile's descriptor as its low word (start address and
+// leading byte offset; k steps add to the address field, which does not
+// carry) and the high word, which is the same for every tile.  The low
+// word is made opaque where a product is issued, so that ptxas forms
+// each k step's descriptor there instead of holding all of them (Q's are
+// loop-invariant) in registers across the loop.
+__device__ __forceinline__ uint32_t desc_lo(const void* p, uint32_t lbo) {
+  uint32_t lo = static_cast<uint32_t>(hopper::sw128_desc(p, lbo));
+  asm volatile("" : "+r"(lo));
+  return lo;
+}
+__device__ __forceinline__ uint64_t desc(uint32_t lo, int elems) {
+  constexpr uint64_t HI = static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+  return HI | (lo + elems / 8);
+}
+
+// S (64 x BN) = Q K^T over depth HDP, issued by one warpgroup: its 64 Q
+// rows and the tile's BN keys K-major in swizzled 64-column boxes.
+template <int HDP, int BN>
+__device__ __forceinline__ void s_product(float* sacc, const bf16* qw,
+                                          const bf16* ks) {
+  const uint32_t qa = desc_lo(qw, 16), ka = desc_lo(ks, 16);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const int box = kk / 4, off = 16 * (kk % 4);
+    const uint64_t da = desc(qa, box * BM * 64 + off);
+    const uint64_t db = desc(ka, box * BN * 64 + off);
+    if (kk == 0)
+      hopper::Wgmma<BN>::ss_zero(sacc, da, db);
+    else
+      hopper::Wgmma<BN>::ss(sacc, da, db, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// O (64 x HDPV) += P V: P as register fragments (4 a k step of 16 keys),
+// V MN-major from the same swizzled tile.
+template <int HDPV, int BN>
+__device__ __forceinline__ void pv_product(float* o, const uint32_t* p,
+                                           const bf16* vs) {
+  const uint32_t va = desc_lo(vs, BN * 128);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    hopper::Wgmma<HDPV>::rs(o, p + 4 * kk, desc(va, kk * 16 * 64), 1);
+  hopper::wgmma_commit();
+}
+
+// The positions of keys [k0, k0 + BN), -1 at or past T, into this warp's
+// shared-memory row w: coalesced reads, then each lane reads its columns.
+template <int BN>
+__device__ __forceinline__ void stage_pos(const int* kpos, long long st,
+                                          int k0, int T, int lane, int* w) {
+  __syncwarp();  // the previous tile's readers are done
+#pragma unroll
+  for (int c = lane; c < BN; c += 32)
+    w[c] = k0 + c < T ? kpos[(k0 + c) * st] : -1;
+  __syncwarp();
+}
+
+// One tile's online softmax in base 2 (scale * log2(e) folded in), in
+// place: masks a MIXED tile from its staged key positions w, updates each
+// row's max m and sum l, gives O's rescale alpha per row and leaves P in
+// the scores' registers.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float* sacc, float* m, float* l,
+                                             float* alpha, bool mixed,
+                                             const int* w, const int* qpr,
+                                             int c0, float sl2, int causal,
+                                             int window) {
+  if (!mixed) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sacc[i] *= sl2;
+  } else {
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kp = w[8 * nb + c0 + e];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& x = sacc[4 * nb + 2 * i + e];
+          x = keep(qpr[i], kp, causal, window) ? x * sl2 : NEG_INF;
+        }
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mt = NEG_INF;
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb)
+      mt = fmaxf(mt, fmaxf(sacc[4 * nb + 2 * i], sacc[4 * nb + 2 * i + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m[i], mt);
+    alpha[i] = hopper::fast_exp2(m[i] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sacc[4 * nb + 2 * i + e];
+        x = hopper::fast_exp2(x - m_new);
+        rs += x;
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[i] = l[i] * alpha[i] + rs;
+    m[i] = m_new;
+  }
+}
+
+// P rounded to bf16 as the A fragments of O += P V (S's accumulator
+// layout is A's register fragment layout, 16 keys a k step), and O
+// rescaled by alpha per row.
+template <int BN, int HDPV>
+__device__ __forceinline__ void to_operand(const float* sacc, uint32_t* p,
+                                           float* o, const float* alpha) {
+#pragma unroll
+  for (int x = 0; x < BN / 4; ++x)
+    p[x] = attn::pack_bf16(sacc[2 * x], sacc[2 * x + 1]);
+#pragma unroll
+  for (int nb = 0; nb < HDPV / 8; ++nb)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[4 * nb + x] *= alpha[x / 2];
+}
+
+template <int HDP, int HDPV, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wide(const __grid_constant__ CUtensorMap tmq,
+                   const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv, Args a,
+                   int hchunk) {
+  using L = Layout<HDP, HDPV, BN>;
+  extern __shared__ unsigned char wide_smem[];
+  unsigned char* base =
+      wide_smem + ((1024 - (attn::smem_addr(wide_smem) & 1023)) & 1023);
+  bf16* Qs = reinterpret_cast<bf16*>(base);  // [NBOX][BM][64]
+  bf16* Ks = Qs + BM * HDP;                  // [STAGES][NBOX][BN][64]
+  bf16* Vs = Ks + STAGES * BN * HDP;         // [STAGES][NBOXV][BN][64]
+  int* pos_s = reinterpret_cast<int*>(base + L::POS);        // [WARPS][BN]
+  float* meanv = reinterpret_cast<float*>(base + L::MEANV);  // [2][HDPV]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + L::BARS);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + STAGES;
+  unsigned* kdone = reinterpret_cast<unsigned*>(base + L::COUNTS);
+  unsigned* vdone = kdone + STAGES;
+  int* stat = reinterpret_cast<int*>(base + L::STATS);
+  int* tiles = reinterpret_cast<int*>(base + L::TILES);  // [ntk]
+  const CUtensorMap *mk = &tmk, *mv = &tmv;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // Block order: per batch, the heads in chunks of hchunk, and within a
+  // chunk the q tiles from the last (under the causal mask the heaviest)
+  // to the first, head fastest; the blocks in flight then share the K/V
+  // of a few heads in L2.
+  const int nq = (a.S + BM - 1) / BM;
+  const int b = blockIdx.x / (nq * a.H);
+  int r = blockIdx.x % (nq * a.H);
+  const int chunk = r / (nq * hchunk);
+  const int gc = min(hchunk, a.H - chunk * hchunk);
+  r -= chunk * nq * hchunk;
+  const int h = chunk * hchunk + r % gc;
+  const int q0 = (nq - 1 - r / gc) * BM;
+  const int kvh = h / a.g;
+  const int ntk = (a.T + BN - 1) / BN;
+  const int* kpos = a.kpos + b * a.skpb;
+
+  if (tid == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(kfull + s, 1);
+      hopper::mbar_init(vfull + s, 1);
+      kdone[s] = vdone[s] = 0;
+    }
+    hopper::mbar_fence_init();
+    stat[0] = INT_MAX;
+    stat[1] = INT_MIN;
+    stat[2] = 0;
+    stat[4] = stat[5] = 0;
+    // Q comes in during the scan
+    hopper::mbar_expect_tx(qbar, L::Q_BYTES);
+    for (int c = 0; c < L::NBOX; ++c)
+      hopper::tma_load_4d(Qs + c * BM * 64, &tmq, qbar, 64 * c, q0, h, b);
+  }
+  __syncthreads();
+  if (tid < BM && q0 + tid < a.S) {
+    const int qp = a.qpos[b * a.sqpb + (q0 + tid) * a.sqps];
+    if (qp >= 0) {
+      atomicMin(stat, qp);
+      atomicMax(stat + 1, qp);
+    } else {
+      stat[2] = 1;
+    }
+  }
+  __syncthreads();
+  for (int j = warp; j < ntk; j += WARPS) {
+    int kmin = INT_MAX, kmax = INT_MIN;
+    bool hole = false;
+    for (int c = lane; c < BN; c += 32) {
+      const int t = j * BN + c;
+      const int kp = t < a.T ? kpos[t * a.skpt] : -1;
+      if (kp >= 0) {
+        kmin = min(kmin, kp);
+        kmax = max(kmax, kp);
+      } else {
+        hole = true;
+      }
+    }
+    kmin = __reduce_min_sync(0xffffffffu, kmin);
+    kmax = __reduce_max_sync(0xffffffffu, kmax);
+    hole = __any_sync(0xffffffffu, hole);
+    if (lane == 0)
+      tiles[j] = tile_class(stat[0], stat[1], stat[2] != 0, kmin, kmax,
+                            hole, a.causal, a.window);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the live tiles in order, as 4 * index + class, over the classes
+    // (a chunk of 32 is read before any of it is written)
+    int n = 0;
+    for (int j0 = 0; j0 < ntk; j0 += 32) {
+      const int j = j0 + lane;
+      const int c = j < ntk ? tiles[j] : EMPTY;
+      const unsigned live = __ballot_sync(0xffffffffu, c != EMPTY);
+      if (c != EMPTY) tiles[n + __popc(live & ((1u << lane) - 1))] = 4 * j + c;
+      n += __popc(live);
+    }
+    if (lane == 0) stat[3] = n;
+  }
+  __syncthreads();
+  const int nlive = stat[3];
+
+  auto load_k = [&](int t) {
+    const int s = t % STAGES, k0 = (tiles[t] >> 2) * BN;
+    bf16* kd = Ks + s * BN * HDP;
+    hopper::mbar_expect_tx(kfull + s, L::K_BYTES);
+    for (int c = 0; c < L::NBOX; ++c)
+      hopper::tma_load_4d(kd + c * BN * 64, mk, kfull + s, 64 * c, k0, kvh,
+                          b);
+  };
+  auto load_v = [&](int t) {
+    const int s = t % STAGES, k0 = (tiles[t] >> 2) * BN;
+    bf16* vd = Vs + s * BN * HDPV;
+    hopper::mbar_expect_tx(vfull + s, L::V_BYTES);
+    for (int c = 0; c < L::NBOXV; ++c)
+      hopper::tma_load_4d(vd + c * BN * 64, mv, vfull + s, 64 * c, k0, kvh,
+                          b);
+  };
+  if (tid == 0)
+    for (int t = 0; t < STAGES && t < nlive; ++t) {
+      load_k(t);
+      load_v(t);
+    }
+  // This warp is done with live tile t's K (V): the last of the eight
+  // warps to be done refills the stage with tile t + STAGES.
+  auto done_k = [&](int t) {
+    __syncwarp();
+    if (lane == 0 && atomicAdd(kdone + t % STAGES, 1u) % WARPS == WARPS - 1 &&
+        t + STAGES < nlive)
+      load_k(t + STAGES);
+    __syncwarp();
+  };
+  auto done_v = [&](int t) {
+    __syncwarp();
+    if (lane == 0 && atomicAdd(vdone + t % STAGES, 1u) % WARPS == WARPS - 1 &&
+        t + STAGES < nlive)
+      load_v(t + STAGES);
+    __syncwarp();
+  };
+
+  // ---- warpgroup wgi owns rows [64 wgi, 64 wgi + 64)
+  const int wgi = warp / 4;
+  const int r0 = 64 * wgi + 16 * (warp % 4) + lane / 4;  // and r0 + 8
+  const int c0 = 2 * (lane % 4);
+  const float sl2 = a.scale * 1.4426950408889634f;       // scale * log2(e)
+  int qpr[2];
+  bool rvalid[2];
+  float m[2], l[2], alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
+    rvalid[i] = qi < a.S;
+    qpr[i] = rvalid[i] ? a.qpos[b * a.sqpb + qi * a.sqps] : -1;
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+  float o[HDPV / 2], sacc[BN / 2];
+  uint32_t pa[BN / 4];  // P of the P V product
+#pragma unroll
+  for (int i = 0; i < HDPV / 2; ++i) o[i] = 0.f;
+  const bf16* qw = Qs + wgi * 64 * 64;
+  int* pw = pos_s + warp * BN;
+  auto kstage = [&](int t) {
+    hopper::mbar_wait(kfull + t % STAGES, (t / STAGES) & 1);
+    return Ks + (t % STAGES) * BN * HDP;
+  };
+  auto vstage = [&](int t) {
+    hopper::mbar_wait(vfull + t % STAGES, (t / STAGES) & 1);
+    return Vs + (t % STAGES) * BN * HDPV;
+  };
+  // stage tile t's key positions if it is MIXED; whether it is
+  auto mixed = [&](int t) {
+    const int tv = tiles[t];
+    if ((tv & 3) != MIXED) return false;
+    stage_pos<BN>(kpos, a.skpt, (tv >> 2) * BN, a.T, lane, pw);
+    return true;
+  };
+
+  hopper::mbar_wait(qbar, 0);
+  if (nlive > 0) {
+    s_product<HDP, BN>(sacc, qw, kstage(0));
+    bool mx = mixed(0);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<BN / 2>(sacc);
+    done_k(0);
+    softmax_tile<BN>(sacc, m, l, alpha, mx, pw, qpr, c0, sl2, a.causal,
+                     a.window);
+    to_operand<BN, HDPV>(sacc, pa, o, alpha);
+    for (int t = 1; t < nlive; ++t) {
+      s_product<HDP, BN>(sacc, qw, kstage(t));
+      pv_product<HDPV, BN>(o, pa, vstage(t - 1));
+      mx = mixed(t);
+      hopper::wgmma_wait<1>();  // S(t); P V runs on under the softmax
+      hopper::fence_regs<BN / 2>(sacc);
+      done_k(t);
+      softmax_tile<BN>(sacc, m, l, alpha, mx, pw, qpr, c0, sl2, a.causal,
+                       a.window);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<HDPV / 2>(o);
+      hopper::fence_regs<BN / 4>(pa);
+      done_v(t - 1);
+      to_operand<BN, HDPV>(sacc, pa, o, alpha);
+    }
+    pv_product<HDPV, BN>(o, pa, vstage(nlive - 1));
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<HDPV / 2>(o);
+    hopper::fence_regs<BN / 4>(pa);
+    done_v(nlive - 1);
+  }
+
+  // Rows that kept no key: mean(V) over all T keys, once per warpgroup.
+  bool none = false;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) none |= rvalid[i] && !(m[i] > 0.5f * NEG_INF);
+  if (__any_sync(0xffffffffu, none) && lane == 0) stat[4 + wgi] = 1;
+  hopper::named_sync(1 + wgi, 128);
+  float* mvw = meanv + wgi * HDPV;
+  if (stat[4 + wgi]) {
+    const bf16* v = static_cast<const bf16*>(a.v) + b * a.svb + kvh * a.svh;
+    for (int d = tid % 128; d < a.hdv; d += 128) {
+      float sum = 0.f;
+      for (int t = 0; t < a.T; ++t) sum += __bfloat162float(v[t * a.svt + d]);
+      mvw[d] = sum / a.T;
+    }
+    hopper::named_sync(1 + wgi, 128);
+  }
+
+  bf16* out = static_cast<bf16*>(a.out) + b * a.sob + h * a.soh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!rvalid[i]) continue;
+    const int qi = q0 + r0 + 8 * i;
+    const bool mean = !(m[i] > 0.5f * NEG_INF);
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && lane % 4 == 0)   // m, l: base 2, scale folded in
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.S + qi] =
+          mean ? NEG_INF : (m[i] + log2f(l[i])) * 0.6931471805599453f;
+#pragma unroll
+    for (int nb = 0; nb < HDPV / 8; ++nb) {
+      const int col = 8 * nb + c0;
+      if (col >= a.hdv) continue;
+      const float x0 = mean ? mvw[col] : o[4 * nb + 2 * i] * inv;
+      const float x1 = mean ? mvw[col + 1] : o[4 * nb + 2 * i + 1] * inv;
+      *reinterpret_cast<__nv_bfloat162*>(out + qi * a.sos + col) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+// Keys a tile at each width, chosen by measurement (PERF.md §6).
+template <int HDP, int HDPV> constexpr int TILE_KEYS = 96;  // (192, 192)
+template <> constexpr int TILE_KEYS<256, 256> = 64;
+template <> constexpr int TILE_KEYS<192, 128> = 128;
+
+}  // namespace wide
+
 template <int HDP, int HDPV>
 cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   using TL = wg::Tile<HDP, HDPV>;
@@ -599,6 +1094,43 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int HDP, int HDPV>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  constexpr int BN = wide::TILE_KEYS<HDP, HDPV>;
+  using L = wide::Layout<HDP, HDPV, BN>;
+  CUtensorMap mq, mk, mv;
+  if (!hopper::make_map(&mq, a.q, a.hd, a.S, a.H, a.B, a.sqs, a.sqh, a.sqb,
+                        wide::BM) ||
+      !hopper::make_map(&mk, a.k, a.hd, a.T, a.Hkv, a.B, a.skt, a.skh,
+                        a.skb, BN) ||
+      !hopper::make_map(&mv, a.v, a.hdv, a.T, a.Hkv, a.B, a.svt, a.svh,
+                        a.svb, BN))
+    return cudaErrorInvalidValue;
+  const size_t bytes = L::smem_bytes((a.T + BN - 1) / BN);
+  auto kernel = wide::flash_fwd_wide<HDP, HDPV, BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  // Heads go in chunks of about one block per SM (whole GQA groups) once
+  // the K/V of a sequence's heads outgrow L2 (MLA's 128 heads: 164 MB at
+  // 2000 tokens); below that, one chunk.
+  int dev = 0, sms = 0, l2 = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+  if (err != cudaSuccess) return err;
+  const int nq = (a.S + wide::BM - 1) / wide::BM;
+  const long long kv = 2ll * a.Hkv * a.T * (a.hd + a.hdv);
+  const int per = (sms + nq - 1) / nq;
+  const int hchunk = kv > l2 ? min(a.H, (per + a.g - 1) / a.g * a.g) : a.H;
+  kernel<<<nq * a.H * a.B, wide::THREADS, bytes, stream>>>(mq, mk, mv, a,
+                                                           hchunk);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD, int HDV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<HD, HDV>();
@@ -612,12 +1144,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 // fp32 inputs take the FMA kernel (no TF32); bf16 inputs the wgmma
-// kernel, the head dims padded to a multiple of 64 by the TMA zero fill.
-// (hd, hd_v): (hd, hd) at every head dim, and (192, 128).
+// kernels, the head dims padded to a multiple of 64 by the TMA zero fill:
+// the narrow one up to 128, the wide one above.  (hd, hd_v): (hd, hd) at
+// every head dim, and (192, 128).
 cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
   if (a.hdv != a.hd) {
     if (a.hd != 192 || a.hdv != 128) return cudaErrorInvalidValue;
-    return dtype == 1 ? launch_wgmma<192, 128>(a, st)
+    return dtype == 1 ? launch_wide<192, 128>(a, st)
                       : launch<float, 192, 128>(a, st);
   }
   if (dtype == 1) {
@@ -629,8 +1162,8 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
       case 112: return launch_wgmma<128, 128>(a, st);
       case 128: return launch_wgmma<128, 128>(a, st);
       case 160:
-      case 192: return launch_wgmma<192, 192>(a, st);
-      case 256: return launch_wgmma<256, 256>(a, st);
+      case 192: return launch_wide<192, 192>(a, st);
+      case 256: return launch_wide<256, 256>(a, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -649,6 +1182,14 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
 }
 
 }  // namespace
+
+// Which kernel takes head dim hd: 0 = the scalar FMA kernel (fp32), 1 =
+// the narrow wgmma kernel (bf16 up to a padded 128), 2 = the wide one
+// (bf16 above it).
+extern "C" int flash_attention_fwd_route(int dtype, int hd) {
+  if (dtype != 1) return 0;
+  return hd > 128 ? 2 : 1;
+}
 
 // dims: B, H, Hkv, S, T, hd, hd_v.  strides (elements): q (b,h,s), k
 // (b,h,t), v (b,h,t), out (b,h,s), q_pos (b,s), k_pos (b,t); the head

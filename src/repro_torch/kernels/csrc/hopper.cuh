@@ -214,6 +214,37 @@ __device__ __forceinline__ void wgmma_ss_n64_zero(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
+// D = A B^T (+ D when scale_d), m64n96k16: A and B K-major in shared
+// memory, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n96(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D = A B^T, m64n96k16, D's old value neither read nor kept.
+__device__ __forceinline__ void wgmma_ss_n96_zero(float* d, uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : WG_O8(0), WG_O8(8), WG_O8(16), WG_O8(24), WG_O8(32), WG_O8(40)
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // D = A B^T (+ D when scale_d), m64n128k16: A and B K-major in shared
 // memory, 128-byte swizzle.
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
@@ -231,6 +262,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
       : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24),
         WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D = A B^T, m64n128k16, D's old value neither read nor kept.
+__device__ __forceinline__ void wgmma_ss_n128_zero(float* d, uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_O8(0), WG_O8(8), WG_O8(16), WG_O8(24),
+        WG_O8(32), WG_O8(40), WG_O8(48), WG_O8(56)
+      : "l"(da), "l"(db), "r"(0));
 }
 
 // D = A B (+ D when scale_d), m64n64k16: A from registers (4 bf16x2
@@ -344,9 +393,20 @@ template <> struct Wgmma<64> {
     wgmma_rs_n64(d, a, b, s);
   }
 };
+template <> struct Wgmma<96> {
+  __device__ static void ss(float* d, uint64_t a, uint64_t b, int s) {
+    wgmma_ss_n96(d, a, b, s);
+  }
+  __device__ static void ss_zero(float* d, uint64_t a, uint64_t b) {
+    wgmma_ss_n96_zero(d, a, b);
+  }
+};
 template <> struct Wgmma<128> {
   __device__ static void ss(float* d, uint64_t a, uint64_t b, int s) {
     wgmma_ss_n128(d, a, b, s);
+  }
+  __device__ static void ss_zero(float* d, uint64_t a, uint64_t b) {
+    wgmma_ss_n128_zero(d, a, b);
   }
   __device__ static void rs(float* d, const uint32_t* a, uint64_t b, int s) {
     wgmma_rs_n128(d, a, b, s);

@@ -7,10 +7,11 @@ through strides, so the model hands it transposed views of its
 (B,S,H,hd) activations without a copy; any S and T work (no block
 divisibility).  V has a head dim of its own: hd_v = hd, or MLA's q/k 192
 with V 128 (``HEAD_DIM_PAIRS``); the output is hd_v wide.
-bf16 inputs go through the wgmma kernel, whose TMA tensor maps describe
-those views in place: their base addresses and strides must be 16-byte
-aligned, and this wrapper raises (through ``_build.check_qkv``) on any
-that is not.  This wrapper only launches: it raises for tensors that
+bf16 inputs go through a wgmma kernel, "narrow" up to a padded head dim
+of 128 and "wide" above it (:func:`fwd_route` says which), whose TMA
+tensor maps describe those views in place: their base addresses and
+strides must be 16-byte aligned, and this wrapper raises (through
+``_build.check_qkv``) on any that is not.  This wrapper only launches: it raises for tensors that
 are not on a CUDA device.  ``ops.flash_attention`` picks between it and
 the plain version in ``ref``.
 
@@ -44,13 +45,38 @@ HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
 @functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("flash_attention")
+    lib.flash_attention_fwd_route.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_fwd_route.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _fn():
-    fn = _build.load("flash_attention").flash_attention_fwd
+    return entry_point(_lib())
+
+
+def entry_point(lib):
+    """The forward's C entry point in a loaded library, typed."""
+    fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
         _build.INT64_PTR, _build.INT64_PTR, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+#: the forward's kernels by the code its library's route function returns
+FWD_ROUTES = ("fma", "wgmma", "wide")
+
+
+def fwd_route(dtype: torch.dtype, hd: int) -> str:
+    """Which forward kernel takes ``dtype`` at head dim ``hd``: "wgmma"
+    (bf16 up to a padded 128), "wide" (bf16 above it) or "fma" (the
+    scalar kernel, fp32)."""
+    return FWD_ROUTES[_lib().flash_attention_fwd_route(_build.DTYPES[dtype],
+                                                      hd)]
 
 
 @functools.lru_cache(maxsize=None)

@@ -662,6 +662,16 @@ def test_flash_bwd_kernel_repeats_bit_identical_and_takes_strided_do(
 
 
 @pytest.mark.cuda
+def test_flash_fwd_routes_by_head_dim(dev):
+    """bf16 takes the narrow wgmma kernel up to a padded head dim of 128
+    and the wide one above it; fp32 always the scalar one."""
+    for hd in tfa.HEAD_DIMS:
+        want = "wide" if hd > 128 else "wgmma"
+        assert tfa.fwd_route(torch.bfloat16, hd) == want
+        assert tfa.fwd_route(torch.float32, hd) == "fma"
+
+
+@pytest.mark.cuda
 def test_flash_bwd_routes_by_head_dim(dev):
     """bf16 takes the tensor-core kernels at every head dim; fp32 always
     the scalar ones."""
@@ -681,12 +691,19 @@ WIDE_PAIRS = [(160, 160), (192, 192), (192, 128), (256, 256)]
     (2, 10, 2, 90, 90, True, 16, True),      # fully masked rows, window
     (1, 6, 6, 70, 150, False, 0, False),     # cross: every pair kept
     (1, 4, 4, 31, 31, True, 0, False),       # S < 32: one partial tile
+    (2, 4, 4, 40, 40, True, 0, False),       # S < 64: half a warpgroup
+    (1, 4, 4, 161, 161, True, 0, False),     # off 64, 96 and 128 keys
+    (1, 4, 2, 385, 385, True, 0, False),     # more live tiles than stages
+    (1, 4, 4, 50, 700, True, 0, False),      # one q tile, 6-11 kv tiles
+    (1, 8, 8, 300, 300, True, 100, False),   # window: EMPTY tiles first
+    (2, 8, 8, 130, 130, True, 32, True),     # masked rows, window
 ])
 def test_flash_wide_head_dims_match_plain(dev, hd, hd_v, B, H, Hkv, S, T,
                                           causal, window, masked):
     """bf16 at head dims 160-256 and MLA's (192, 128), V at its own head
-    dim: the forward and the tensor-core backward (no producer warp,
-    32-row tiles) against the plain versions at 3e-2 + 3e-2 |x|."""
+    dim: the wide forward (no producer warp, a K and a V ring refilled
+    from the loop) and the tensor-core backward (no producer warp, 32-row
+    tiles) against the plain versions at 3e-2 + 3e-2 |x|."""
     q, k, v, qpos, kpos = flash_bwd_inputs(dev, "bfloat16", B, H, Hkv, S,
                                            T, hd, masked, hd_v)
     do = randn(dev, (B, S, H, hd_v), "bfloat16", 44).transpose(1, 2)
@@ -699,6 +716,8 @@ def test_flash_wide_head_dims_match_plain(dev, hd, hd_v, B, H, Hkv, S, T,
     close(out, want_out, "bfloat16")
     dead = want_lse <= 0.5 * tref.NEG_INF
     assert torch.equal(lse <= 0.5 * tref.NEG_INF, dead)
+    close(lse[~dead], want_lse[~dead], "bfloat16")
+    assert tfa.fwd_route(torch.bfloat16, hd) == "wide"
     assert tfa.bwd_route(torch.bfloat16, hd) == "wgmma"
     got = tfa.flash_attention_bwd(q, k, v, out, lse, do, qpos, kpos, **opts)
     torch.cuda.synchronize()

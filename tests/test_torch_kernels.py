@@ -89,6 +89,21 @@ def test_flash_attention_sweep(dtype, B, H, Hkv, S, T, hd, bq, bk, window):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [160, 256])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)])
+def test_flash_attention_wide_head_dims(dtype, hd, H, Hkv):
+    """StableLM-12B's hd 160 and Gemma-7B's hd 256, which the card runs on
+    the wide kernel: S and T off its tiles (64, 96 and 128 keys), groups
+    of 1 and 4."""
+    B, S, T = 1, 37, 101
+    qkv = flash_inputs(3, B, H, Hkv, S, T, hd, dtype)
+    qpos = np.broadcast_to(np.arange(S, dtype=np.int32) + (T - S),
+                           (B, S)).copy()
+    kpos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    check_flash(qkv, qpos, kpos, dtype, 0, S, T)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [0, 16])
 def test_flash_attention_gqa9_ragged_strided(dtype, window):
     """StarCoder2's group of 9, S and T that no tile divides, and q/k/v
