@@ -89,18 +89,34 @@ which must pass for the run to exit 0:
    at full width and cut depth (``FP32_TRAIN``) through the kernels
    against the same with ``kernels.ops`` patched to the plain versions
    on the card: the loss and every gradient leaf;
-6. dryrun: ``launch.dryrun`` on the host, on the meta device, for all 10
+6. placement: an NCCL process group of one rank and ``make_local_mesh()``
+   = (1, 1) with a ``DeviceMesh``.  The train phase's StarCoder2-7B case
+   takes one step with its parameters, AdamW's moments and its batch
+   placed by ``TRAIN_RULES`` (DTensors), against the same step unplaced
+   from the same weights and batch: the loss and every gradient leaf,
+   bit for bit or within ``PLACED_LOSS_TOL`` / ``PLACED_GRAD_TOL``
+   (printed which); K2's forward and backward launches by the profiler
+   must be equal, and every placed K2 call goes through ``local_map``;
+   both steps' ms.  DeepSeek-V3 (5 of 61 layers: MLA, MoE) and
+   Zamba2-7B (K3) run a prefill and ``PLACED_DECODE`` decode steps under
+   ``SERVE_RULES`` against the unplaced run: logits within
+   ``PLACED_LOGIT_TOL`` (or bit for bit), K1, K2 and K3 launches matching
+   the work, each through ``local_map``;
+7. dryrun: ``launch.dryrun`` on the host, on the meta device, for all 10
    architectures x 4 shapes at full size (parameters, argument bytes on
-   one card and per device on 16x16, whether they fit 80 GB, counted
-   FLOPs and unfused bytes, their times at the H100's peaks, the
-   bottleneck and the useful share); any failing case fails the phase.
+   one card, whether they fit 80 GB, counted FLOPs and unfused bytes,
+   their times at the H100's peaks, the bottleneck and the useful
+   share), and each placed on 16x16 (a fake process group of 256): one
+   device's FLOPs, bytes and collective bytes, the compute, memory and
+   collective terms and the bottleneck, and the trace seconds; any
+   failing case fails the phase.
    For each config phase 5 trained, the dry run's argument bytes
    (parameters, AdamW's state, the batch) must equal the device memory
    the run had requested when its first step started, within
    ``DRY_MEMORY_SLACK``, and ``memory_allocated`` within the caching
    allocator's rounding; its roofline is printed beside the measured
    step;
-7. simulate: the paper's main path.  A 3-day trace
+8. simulate: the paper's main path.  A 3-day trace
    (``generate_trace(WorkloadSpec(days=3, scale=0.05, seed=0))``, about
    745k requests) through ``build_stack(...).simulate`` on the fully
    co-optimised ``lt-ua+plan`` stack (LT-UA scaling, the routing-aware
@@ -113,7 +129,7 @@ which must pass for the run to exit 0:
    parameters must equal the kernel's bit for bit, and the ILP targets
    its forecasts give are counted against the run's.
 
-8. vector: the paper's main path on the vector engine.
+9. vector: the paper's main path on the vector engine.
    ``run_experiment(ExperimentSpec(engine="vector"), device=cuda)`` over
    the same 3-day trace with the seven strategies of the reference's
    benchmarks (siloed, reactive, LT-I, LT-U, LT-UA, ``lt-ua+plan``,
@@ -122,7 +138,7 @@ which must pass for the run to exit 0:
    kernel (the launch count must equal the segments) and every hourly
    boundary's forecast fits one ``arma_fit`` batch across the fleet.
    Each Report is printed; the vector ``lt-ua+plan`` Report must lie
-   within the reference's vector-vs-event tolerance of phase 7's (0.02
+   within the reference's vector-vs-event tolerance of phase 8's (0.02
    completion, 10% GPU-hours and dollars).  The run is made once more
    under torch.profiler for the kernels' own device time and the run's
    device-busy share (the CUDA events around each launch also hold the
@@ -136,7 +152,7 @@ which must pass for the run to exit 0:
    chain floor of one bucket's dependent ops (``BUCKET_CHAIN``), the
    eager plain step and the plain step captured in a CUDA graph (a
    measurement only);
-9. analysis: reprolint on the card's host, which has no JAX: the AST
+10. analysis: reprolint on the card's host, which has no JAX: the AST
    tier (``repro_torch.analysis.run_lint``) over ``src/repro_torch`` must
    find no violation and no stale suppression, and the trace tier
    (``run_trace(device=cuda)``) must pass T1-T4 against the vector
@@ -147,7 +163,7 @@ which must pass for the run to exit 0:
    segment-cache key, at most two carries alive across five segments
    of a real ``VectorBatch`` with ``memory_allocated`` flat; each
    check's time is printed;
-10. examples: the four ``examples/torch_*.py`` (``EXAMPLES``), each in a
+11. examples: the four ``examples/torch_*.py`` (``EXAMPLES``), each in a
     process of its own on the card with its counterpart's defaults: each
     must exit 0, and prints its wall time.
 
@@ -243,7 +259,7 @@ PORT_KERNELS = ("flash_fwd_wgmma", "flash_fwd", "decode_split_mma",
 WGMMA_KERNELS = ("flash_fwd_wgmma", "flash_fwd_wide", "decode_split_mma",
                  "bwd_dkdv_wgmma", "bwd_dq_wgmma")
 SPIN_CYCLES = 4_000_000  # ~2 ms at H100 clocks: longer than any call's host time
-# The ARMA fit (phase 7): the lt-ua+plan stack of benchmarks/common.py
+# The ARMA fit (phase 8): the lt-ua+plan stack of benchmarks/common.py
 # (stack_spec(BenchSpec(), "lt-ua+plan")), written out: that module
 # imports jax.  Kernel and plain version round every op alike and must
 # agree bit for bit (ARMA_ATOL = 0).
@@ -259,7 +275,7 @@ ARMA_LENGTHS = (1, 8, 255, 257, 511, 2815, 2817, "longest")
 ARMA_LONGEST_STEPS = 20
 ARMA_REPLICAS = 8        # the timed batch of replicas of the run's rows
 FMA_LATENCY_CYCLES = 4   # one dependent fp32 FMA on Hopper
-# The vector engine (phase 8): the seven strategies of
+# The vector engine (phase 9): the seven strategies of
 # benchmarks/common.py:115-142 (stack_spec(BenchSpec(), s)), written out:
 # that module imports jax.  The bucket step's kernel and plain version do
 # the same float32 ops in the same order (BUCKET_ATOL = 0).
@@ -1494,8 +1510,8 @@ def train_run(dev, arch, cut, batch, seq, steps, remat, lr):
     held = {}
     make = loop.make_train_step
 
-    def timed_factory(cfg_, opt_, remat=False):
-        step = make(cfg_, opt_, remat=remat)
+    def timed_factory(cfg_, opt_, remat=False, **placed):
+        step = make(cfg_, opt_, remat=remat, **placed)
 
         def timed(params, state, batch_):
             if not held:
@@ -1623,6 +1639,288 @@ def check_fp32_train(dev, arch, cut, batch, seq) -> None:
     del params, grads_k, grads_p
 
 
+# -------------------------------------------------------------- placement
+#: [placement]: one rank's NCCL group, ``make_local_mesh()`` = (1, 1).
+#: Training: the train phase's StarCoder2-7B case, by ``TRAIN_RULES``;
+#: serving: a prefill and ``PLACED_DECODE`` decode steps (the unplaced
+#: run's greedy tokens fed to both) of ``PLACED_BATCH`` prompts of
+#: ``PLACED_PROMPT`` tokens, by ``SERVE_RULES``, at ``SERVED_CUT`` depth
+PLACED_TRAIN = ("starcoder2-7b", dict(num_layers=16), 2, 2048, 1e-5)
+PLACED_SERVED = ("deepseek-v3-671b", "zamba2-7b")
+PLACED_BATCH, PLACED_PROMPT, PLACED_DECODE = 2, 500, 4
+#: placed vs unplaced in bf16: the train phase's tolerances (loss rel
+#: 1e-5 would be fp32's; in bf16 the two paths' losses differ by the
+#: placed loss's own reduction of the split vocabulary) and the serve
+#: phase's for logits
+PLACED_LOSS_TOL = 1e-3
+PLACED_GRAD_TOL = 3e-2
+PLACED_LOGIT_TOL = SERVE_LOGIT_TOL
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def local_map_calls():
+    """{op: calls} of the placed route to local shards,
+    ``dist.sharding.on_shards`` (``local_map``): K1 and K2 through
+    ``kernels.ops``, K3 inside the SSD scan the SSM runs on its shards."""
+    from repro_torch.dist import sharding
+
+    calls = {}
+    route = sharding.on_shards
+
+    def counted(name, *args, **kwargs):
+        calls[name] = calls.get(name, 0) + 1
+        return route(name, *args, **kwargs)
+
+    with mock.patch.object(sharding, "on_shards", counted):
+        yield calls
+
+
+def k2_profiled_launches(fn):
+    """fn() under torch.profiler: its K2 forward and backward kernels'
+    launches (device kernels by name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fwd = bwd = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = kernel_name(e.key)
+        if name.startswith("flash_fwd"):
+            fwd += e.count
+        elif any(name.startswith(k) for k in BWD_KERNELS):
+            bwd += e.count
+    return fwd, bwd
+
+
+def placed_train(dev, mesh) -> dict:
+    """One training step of the train phase's StarCoder2-7B case from the
+    same seeded weights and batch, unplaced and with the parameters,
+    AdamW's moments and the batch placed by ``TRAIN_RULES`` on
+    ``mesh``: the loss and every gradient leaf (bit for bit, or within
+    ``PLACED_LOSS_TOL`` / ``PLACED_GRAD_TOL``: printed which), K2's
+    forward and backward launches by the profiler (equal), the placed
+    route's ``local_map`` calls, and each path's step ms (the mean of
+    two steps after the compared one).  Returns the placed run's kernel
+    launch counts."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import model
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import AdamW
+
+    arch, cut, batch, seq, lr = PLACED_TRAIN
+    cfg = served_config(arch, cut)
+    inputs = loop.batch_to(next(SyntheticLM(
+        cfg, DataConfig(batch_size=batch, seq_len=seq, seed=0))
+        .batches(1)), dev)
+    runs = {}
+    for placed in (False, True):
+        params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        b = inputs
+        if placed:
+            sh.distribute(params, mesh, sh.TRAIN_RULES)
+            b = sh.place_tree(inputs, model.batch_axes(inputs), mesh,
+                              sh.TRAIN_RULES)
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        opt = AdamW(lr=lr)
+        state = opt.init(named)
+        def step(record=None):
+            for p in named.values():
+                p.grad = None
+            with (sh.axis_rules(mesh, sh.TRAIN_RULES) if placed
+                  else contextlib.nullcontext()):
+                loss = model.loss_fn(cfg, params, b, remat=True)
+                loss.backward()
+                grads = {n: p.grad for n, p in named.items()}
+                if record is not None:
+                    record["loss"] = float(sh.gather(loss.detach()))
+                    record["grads"] = {n: sh.gather(g).detach().clone()
+                                       for n, g in grads.items()}
+                opt.step_(named, grads, state)
+
+        rec = {}
+        reset_model_counts()
+        with local_map_calls() as calls:
+            step(rec)
+            torch.cuda.synchronize()
+        counts = model_counts()
+        fwd, bwd = k2_profiled_launches(step)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        rec.update(counts=counts, k2=(fwd, bwd), local_map=dict(calls),
+                   ms=1e3 * sum(times) / len(times))
+        runs[placed] = rec
+        del params, named, state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    want, got = runs[False], runs[True]
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    rel = {n: float((g.float() - want["grads"][n].float()).norm()
+                    / want["grads"][n].float().norm().clamp_min(1e-30))
+           for n, g in got["grads"].items()}
+    worst = max(rel, key=rel.get)
+    exact = loss_rel == 0 and all(torch.equal(g, want["grads"][n])
+                                  for n, g in got["grads"].items())
+    log(f"  train {cfg.name} ({depth_note(cfg)}), B={batch} S={seq}: loss "
+        f"{got['loss']:.6f} placed vs {want['loss']:.6f}, rel "
+        f"{loss_rel:.2e}; {len(rel)} gradient leaves, worst rel L2 "
+        f"{rel[worst]:.2e} ({worst}): "
+        + ("bit for bit" if exact else
+           f"within the train tolerances (loss {PLACED_LOSS_TOL:g}, leaves "
+           f"{PLACED_GRAD_TOL:g})"))
+    log(f"    K2 forward/backward launches by the profiler, a step: "
+        f"placed {got['k2']}, unplaced {want['k2']}; the compared step's "
+        f"launches {got['counts']}, its local_map calls {got['local_map']}")
+    log(f"    step {want['ms']:.1f} ms unplaced, {got['ms']:.1f} ms placed "
+        f"({got['ms'] / want['ms']:.3f}x; mean of 2 steps each, after the "
+        f"compared and the profiled one)")
+    if not (exact or (loss_rel <= PLACED_LOSS_TOL
+                      and rel[worst] <= PLACED_GRAD_TOL)):
+        raise SystemExit("placement: the placed training step disagrees "
+                         "with the unplaced one")
+    if got["k2"] != want["k2"] or got["k2"][1] == 0:
+        raise SystemExit("placement: K2's launches differ between the "
+                         "placed and the unplaced step")
+    if got["counts"] != want["counts"] or \
+            got["local_map"].get("flash_attention", 0) != \
+            got["counts"]["flash_attention"]:
+        raise SystemExit("placement: a placed K2 call did not go through "
+                         "local_map")
+    return got["counts"]
+
+
+def placed_serve(dev, mesh, arch: str) -> dict:
+    """A prefill of ``PLACED_BATCH`` x ``PLACED_PROMPT`` tokens and
+    ``PLACED_DECODE`` decode steps of ``arch`` (``SERVED_CUT`` depth),
+    unplaced and then with the same weights, inputs and tokens placed
+    by ``SERVE_RULES`` on ``mesh``: every step's logits against the
+    unplaced run's (rel L2, ``PLACED_LOGIT_TOL``; printed whether bit
+    for bit), and the placed run's K1/K2/K3 launches, which must match
+    the work and all go through ``local_map``.  Returns them."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import model
+
+    cfg = served_config(arch)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    inputs = model.make_inputs(cfg, PLACED_BATCH, PLACED_PROMPT, device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(1))
+    S = PLACED_PROMPT
+
+    def run(placed, tokens=None):
+        b, ctx = inputs, contextlib.nullcontext()
+        if placed:
+            b = sh.place_tree(inputs, model.batch_axes(inputs), mesh,
+                              sh.SERVE_RULES)
+            ctx = sh.axis_rules(mesh, sh.SERVE_RULES)
+        out, toks = [], []
+        with torch.no_grad(), ctx:
+            logits, pre, _ = model.forward(cfg, params, b, return_cache=True)
+            cache = model.init_decode_cache(
+                cfg, PLACED_BATCH, S + PLACED_DECODE, device=dev,
+                **(dict(mesh=mesh, rules=sh.SERVE_RULES) if placed else {}))
+            model.merge_prefill_cache(cache, pre)
+            out.append(sh.gather(logits[:, -1]).float())
+            for i in range(PLACED_DECODE):
+                tok = (out[-1].argmax(-1).to(torch.int32)[:, None]
+                       if tokens is None else tokens[i])
+                toks.append(tok)
+                cur = torch.full((PLACED_BATCH,), S + i, dtype=torch.int32,
+                                 device=dev)
+                if placed:
+                    tok = sh.place(tok, mesh, sh.SERVE_RULES, ("batch", None))
+                    cur = sh.place(cur, mesh, sh.SERVE_RULES, ("batch",))
+                logits, cache = model.decode_step(cfg, params, tok, cache,
+                                                  cur)
+                out.append(sh.gather(logits[:, 0]).float())
+        torch.cuda.synchronize()
+        return out, toks
+
+    t = time.perf_counter()
+    want, toks = run(False)
+    plain_s = time.perf_counter() - t
+    sh.distribute(params, mesh, sh.SERVE_RULES)
+    reset_model_counts()
+    with local_map_calls() as calls:
+        t = time.perf_counter()
+        got, _ = run(True, toks)
+        placed_s = time.perf_counter() - t
+    counts = model_counts()
+    rel = [float((g - w).norm() / w.norm()) for g, w in zip(got, want)]
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    expect = expected_launches(cfg, 1, PLACED_DECODE)
+    log(f"  serve {cfg.name} ({depth_note(cfg)}): prefill {PLACED_BATCH} x "
+        f"{S} and {PLACED_DECODE} decode steps, logits placed vs unplaced: "
+        f"rel L2 up to {max(rel):.2e} "
+        f"({'bit for bit' if exact else f'tol {PLACED_LOGIT_TOL:g}'}); "
+        f"{plain_s:.2f} s unplaced, {placed_s:.2f} s placed (host "
+        f"clock, first calls); launches {counts}, expected {expect}; "
+        f"local_map calls {calls}")
+    if not (exact or max(rel) <= PLACED_LOGIT_TOL):
+        raise SystemExit(f"placement {arch}: placed logits disagree")
+    if any(counts[k] != v for k, v in expect.items()):
+        raise SystemExit(f"placement {arch}: launch counts do not match the "
+                         f"served work")
+    for op, kernel in (("flash_attention", "flash_attention"),
+                       ("decode_attention", "decode_attention"),
+                       ("ssd_chunked", "ssd_scan")):
+        if calls.get(op, 0) != counts[kernel]:
+            raise SystemExit(f"placement {arch}: {counts[kernel]} {kernel} "
+                             f"launches, {calls.get(op, 0)} through "
+                             f"local_map")
+    del params, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def placement(dev) -> dict:
+    """[placement]: an NCCL process group of one rank on ``dev`` and
+    ``make_local_mesh()``, (1, 1) with a ``DeviceMesh``; the placed
+    training step and the placed serving runs.  Nothing is caught: a
+    failing group or ``local_map`` fails the run.  Returns each run's
+    kernel launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_local_mesh()
+        if mesh.device_mesh is None or mesh.size != 1:
+            raise SystemExit(f"placement: make_local_mesh() gave {mesh}")
+        log(f"  make_local_mesh(): {mesh.shape}, {mesh.device_mesh}")
+        by_run = {"placed train": placed_train(dev, mesh)}
+        for arch in PLACED_SERVED:
+            by_run[f"placed serve {arch}"] = placed_serve(dev, mesh, arch)
+    finally:
+        dist.destroy_process_group()
+    return by_run
+
+
 # ---------------------------------------------------------------- dry run
 #: the dry run's argument bytes against the device memory the trained run
 #: asked for, for the same config and batch: equal, but for a stray
@@ -1637,8 +1935,8 @@ DRY_WORKERS = 6          # processes tracing the 40 cases on the host
 
 
 def dry_case(arch: str, shape: str):
-    """One case on the local mesh (traced) and on 16x16 (arguments only);
-    a pool worker's task."""
+    """One case on the local mesh and on 16x16 (placed on a fake group of
+    256, each device's terms); a pool worker's task."""
     from repro_torch.launch import dryrun
 
     return (dryrun.run_case(arch, shape, verbose=False),
@@ -1681,8 +1979,8 @@ def dry_run(trained) -> None:
                 failed.append(f"{a} x {s}: {type(e).__name__}: {e}")
                 log(f"  {a} x {s}: FAILED: {type(e).__name__}: {e}")
                 continue
-            log(f"  {dryrun.format_case(local)}; 16x16: "
-                f"{prod['argument_bytes_per_device'] / 1e9:.3f} GB a device")
+            log(f"  {dryrun.format_case(local)}")
+            log(f"    {dryrun.format_case(prod)}")
     if failed:
         raise SystemExit(f"dryrun: {len(failed)} of {len(cases)} cases "
                          f"failed: {failed}")
@@ -2032,8 +2330,8 @@ def vector_specs():
 
 
 def vector_experiment():
-    """The seven strategies over phase 7's 3-day trace on the vector
-    engine, with the fit and ILP caches emptied (phase 7 and its replay
+    """The seven strategies over phase 8's 3-day trace on the vector
+    engine, with the fit and ILP caches emptied (phase 8 and its replay
     filled them with this trace's fits and plans), so a run fits and
     solves its own."""
     from repro_torch.api import ExperimentSpec
@@ -2094,7 +2392,7 @@ def report_vector(vrun, launches, event_run) -> None:
     """Print each strategy's Report and the batches' control-plane
     counters; fail unless every segment launched the kernel, every run
     completed, and the vector ``lt-ua+plan`` Report is within the
-    reference's vector-vs-event tolerance of phase 7's."""
+    reference's vector-vs-event tolerance of phase 8's."""
     results, segs = vrun["results"], vrun["segs"]
     for r in results:
         log(f"  {r.strategy:10s} [{r.engine}] GPU-hours "
@@ -2142,7 +2440,7 @@ def report_vector(vrun, launches, event_run) -> None:
     d_frac = vec_frac - ev_frac
     d_hours = vec.total_instance_hours / ev.total_instance_hours() - 1.0
     d_dollars = vec.total_gpu_dollars / ev.total_gpu_dollars() - 1.0
-    log(f"  lt-ua+plan, vector vs event loop (phase 7): completion "
+    log(f"  lt-ua+plan, vector vs event loop (phase 8): completion "
         f"{vec_frac:.5f} vs {ev_frac:.5f} ({d_frac:+.5f}, tol "
         f"{COMPLETION_ABS_TOL}), GPU-hours {d_hours:+.4%}, dollars "
         f"{d_dollars:+.4%} (tol {HOURS_REL_TOL:.0%})")
@@ -2208,7 +2506,7 @@ class PlainStepGraph:
 
 def profile_vector(dev, launches) -> None:
     """The vector run once more under torch.profiler (device activity
-    only): the bucket_step kernels' own device time (phase 8's events
+    only): the bucket_step kernels' own device time (phase 9's events
     around each launch also hold the host's enqueue gaps), the fit
     kernels', and the run's device-busy share of its wall time (which
     the profiler inflates)."""
@@ -2520,6 +2818,12 @@ def main() -> int:
         check_fp32_train(dev, arch, cut, batch, seq)
         gc.collect()
         torch.cuda.empty_cache()
+    log("[placement] an NCCL process group of one rank, make_local_mesh() "
+        "= (1, 1): the placed training step and serving runs against the "
+        "unplaced ones, every kernel through local_map")
+    t0 = time.perf_counter()
+    by_run.update(placement(dev))
+    log(f"[placement] done in {time.perf_counter() - t0:.1f} s wall")
     for row in rows:
         row["launches_by_run"] = {a: n[row["name"]]
                                   for a, n in by_run.items()}

@@ -16,10 +16,20 @@ that an earlier dimension already consumed (GSPMD allows each mesh axis
 at most once per spec).  :func:`local_shape` is the per-device shard of
 a shape under a spec, rounded up as GSPMD pads an uneven split.
 
-``shard(x, *axes)`` is a no-op outside an ``axis_rules(mesh, rules)``
-context; inside one, on a mesh of one device, it checks that ``axes``
-names every dimension of ``x`` and returns it.  Placement across cards
-is not ported: on a larger mesh it raises.
+Placement is DTensor's (``torch.distributed.tensor``), GSPMD's
+counterpart: :func:`placements` turns a spec into one ``Shard(dim)`` or
+``Replicate()`` per mesh axis, :func:`distribute` places a module's
+parameters by their logical axes, :func:`place` a batch or cache leaf,
+and :func:`gather` brings a placed tensor back whole.  They need a mesh
+with a ``DeviceMesh`` (``launch.mesh``: a process group spans it).
+
+``shard(x, *axes)``, the counterpart of ``with_sharding_constraint``,
+is a no-op outside an ``axis_rules(mesh, rules)`` context.  Inside one
+it checks that ``axes`` names every dimension of ``x``; on a mesh with
+a ``DeviceMesh`` it redistributes ``x`` to its placements (a plain
+tensor counts as replicated: every rank computed it alike), and on a
+mesh of one device without one it returns ``x``.  A larger mesh that
+no process group spans cannot place anything: it raises.
 
 Not carried: the reference's ``P`` boxes and ``box_like`` re-box
 plain arrays into pytrees; the port's parameters carry their axes
@@ -29,13 +39,15 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard, distribute_tensor)
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 
-from repro_torch.models.convert import reference_groups
 
 Axis = Optional[str]
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -55,6 +67,8 @@ class PartitionSpec(tuple):
 def axes_of(module: nn.Module) -> Dict[str, Tuple[Axis, ...]]:
     """{reference key: the leaf's logical axes}; a stacked leaf's start
     with the layer axis None.  Raises if a stack's layers disagree."""
+    from repro_torch.models.convert import reference_groups
+
     out = {}
     for key, (stacked, named) in reference_groups(module).items():
         distinct = {p.logical_axes for _, p in named}
@@ -68,6 +82,8 @@ def axes_of(module: nn.Module) -> Dict[str, Tuple[Axis, ...]]:
 def unbox(module: nn.Module) -> Dict[str, torch.Tensor]:
     """{reference key: tensor}, a stacked leaf's layers stacked along a
     new leading axis (a copy; on the meta device, shapes only)."""
+    from repro_torch.models.convert import reference_groups
+
     return {key: torch.stack([p for _, p in named]) if stacked
             else named[0][1]
             for key, (stacked, named) in reference_groups(module).items()}
@@ -155,34 +171,327 @@ def local_shape(shape: Sequence[int], spec: PartitionSpec,
     return tuple(out)
 
 
-_ctx = threading.local()
+class _Context:
+    """The active ``(mesh, rules)``, for the whole process: autograd runs
+    a backward, and the forward that remat recomputes inside it, on its
+    own device threads, which must see the constraints the step was
+    traced under (the reference's context is per thread: JAX traces in
+    the caller's)."""
+    active = None
+
+
+_ctx = _Context()
 
 
 @contextlib.contextmanager
 def axis_rules(mesh, rules: ShardingRules):
-    """Activate ``shard``'s checks for ``mesh`` in this thread."""
-    prev = getattr(_ctx, "active", None)
+    """Activate ``shard``'s constraints for ``mesh`` (process-wide, as
+    ``_Context`` says).  On a mesh with a ``DeviceMesh`` a placed step
+    runs inside, so a plain
+    tensor that every rank makes alike mid-step (the plain kernels'
+    masks and tables, the SSD's chunk masks, the optimizer's scalars)
+    meets a DTensor as a replicated one (DTensor's
+    ``implicit_replication``)."""
+    prev = _ctx.active
     _ctx.active = (mesh, rules)
     try:
-        yield
+        with (implicit_replication() if mesh.device_mesh is not None
+              else contextlib.nullcontext()):
+            yield
     finally:
         _ctx.active = prev
 
 
+def placements(spec: PartitionSpec, mesh) -> Tuple[Placement, ...]:
+    """One placement per axis of ``mesh``, in its order: ``Shard(d)`` for
+    the tensor dimension d whose entry names the axis, else
+    ``Replicate()``.  A dimension on several mesh axes (``batch`` on
+    ``("pod", "data")``) is split by each, the first named the major
+    one, as GSPMD splits it; DTensor splits a dimension in mesh order,
+    so the entry's axes must come in that order."""
+    names = tuple(mesh.axis_names)
+    out = []
+    for axis in names:
+        dims = [i for i, e in enumerate(spec)
+                if e == axis or (isinstance(e, tuple) and axis in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    for entry in spec:
+        if isinstance(entry, tuple) and \
+                list(entry) != sorted(entry, key=names.index):
+            raise ValueError(f"{entry}: a dimension's mesh axes must come "
+                             f"in the mesh's order {names}")
+    return tuple(out)
+
+
+def _device_mesh(mesh):
+    if mesh.device_mesh is None:
+        raise ValueError(f"a mesh of {mesh.size} devices that no process "
+                         f"group spans places nothing")
+    return mesh.device_mesh
+
+
+def place(x: torch.Tensor, mesh, rules: ShardingRules,
+          axes: Sequence[Axis]) -> DTensor:
+    """``x``, which every rank holds whole and alike, as a DTensor placed
+    by the spec ``rules`` give ``axes`` (each rank keeps its chunk; no
+    collective)."""
+    if len(axes) != x.ndim:
+        raise ValueError(f"axes {tuple(axes)} do not name the {x.ndim} "
+                         f"dimensions of a {tuple(x.shape)} tensor")
+    return distribute_tensor(x, _device_mesh(mesh),
+                             placements(rules.spec(axes, mesh), mesh),
+                             src_data_rank=None)
+
+
+def clear_propagation_cache() -> None:
+    """Empty DTensor's cache of op placements.  It keys an op by its
+    arguments' placements and shapes but not by every argument that
+    sets its output's shape (``topk``'s k, in torch 2.13), so a model
+    placed after another with another top-k would read the first one's
+    shapes: :func:`distribute` clears it."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    prop.propagate_op_sharding.cache_clear()
+    prop._propagate_tensor_meta_cached.cache_clear()
+    torch._C._clear_DTensor_sharding_propagator_cache()
+
+
+class _GatherOnUse:
+    """Mixed into a placed module's class by :func:`distribute`: reading
+    a parameter split over an axis the batch is split over (the train
+    rules' ``embed`` over ``data``: FSDP) returns it gathered over that
+    axis inside ``axis_rules``, as GSPMD gathers it for its products,
+    and its gradient is reduce-scattered back.  Without the gather
+    DTensor may instead split a product over its contraction, which
+    gathers the activations and repeats their FLOPs on every device.
+    A lookup table (``table``: embeddings read by rows) is not
+    gathered: each device looks up its own columns."""
+
+    def __getattr__(self, name):
+        value = super().__getattr__(name)
+        active = _ctx.active
+        if active is None or not isinstance(value, DTensor):
+            return value
+        mesh, rules = active
+        if getattr(value, "table", False):
+            return value
+        batch = rules.get("batch")
+        batch = {batch} if isinstance(batch, str) else set(batch or ())
+        want = tuple(Replicate() if axis in batch else pl
+                     for axis, pl in zip(mesh.axis_names, value.placements))
+        if want == tuple(value.placements):
+            return value
+        return value.redistribute(value.device_mesh, want)
+
+
+def _gathering(cls):
+    if issubclass(cls, _GatherOnUse):
+        return cls
+    return type(cls.__name__, (_GatherOnUse, cls), {})
+
+
+def distribute(module: nn.Module, mesh, rules: ShardingRules) -> nn.Module:
+    """Place every parameter of ``module`` by its ``logical_axes``, in
+    place (each becomes a DTensor parameter that keeps its axes and its
+    ``requires_grad``, and its module gathers it on use as
+    :class:`_GatherOnUse` says); returns ``module``.  Every rank must
+    hold the same weights, as a seeded ``model.init`` draws them."""
+    clear_propagation_cache()
+    for mod in module.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is None or isinstance(p.data, DTensor):
+                continue
+            d = nn.Parameter(place(p.detach(), mesh, rules, p.logical_axes),
+                             requires_grad=p.requires_grad)
+            d.__dict__.update(p.__dict__)       # logical_axes, table
+            mod._parameters[name] = d
+        if mod._parameters:
+            mod.__class__ = _gathering(type(mod))
+    return module
+
+
+def is_placed(x) -> bool:
+    """Whether ``x`` is a DTensor (placed on a mesh)."""
+    return isinstance(x, DTensor)
+
+
+def place_tree(tree: Dict, axes: Dict, mesh, rules: ShardingRules) -> Dict:
+    """:func:`place` on every leaf of a nested dict, by the axes tree of
+    the same structure (a batch, a decode cache)."""
+    return {k: place_tree(v, axes[k], mesh, rules) if isinstance(v, dict)
+            else place(v, mesh, rules, axes[k]) for k, v in tree.items()}
+
+
+def placed_like(ref: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (a gradient) placed as ``ref`` (its parameter): DTensor
+    leaves a gradient a partial sum over the axes its batch was split
+    on, and this is where it is reduced (all-reduce, or reduce-scatter
+    onto a split parameter)."""
+    if isinstance(x, DTensor) and tuple(x.placements) != \
+            tuple(ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: a shard's gradient out
+    of ``local_map`` may be strided (an einsum's), and DTensor's view
+    ops on it (the backward of a reshape) need it contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _local_layout(x, batch, heads):
+    """x's placements if each mesh axis splits only its ``batch`` or
+    ``heads`` dimension (or nothing), else None."""
+    kept = [Replicate()] + [Shard(d) for d in (batch, heads) if d is not None]
+    return tuple(x.placements) if all(p in kept for p in x.placements) \
+        else None
+
+
+def on_shards(name: str, fn, lead, args, dims, outs, strict: bool = False):
+    """``fn(*args)`` on each device's local shards (``local_map``), for an
+    op that is local over its batch and its heads (attention, the SSD
+    scan, a depthwise conv).  ``dims`` gives each of ``args`` its (batch
+    dim, heads dim), either None where it has none, ``outs`` each
+    output's; ``lead`` is the placed argument whose layout decides.  An
+    axis that splits lead's batch or heads splits each argument's own
+    (an argument without that dim is replicated over it); an axis that
+    splits neither gathers any argument split over it (K/V over their
+    sequence).  Where lead is split otherwise (a head_dim), ``strict``
+    raises (a kernel on the card takes no other placement); else ``fn``
+    runs on the DTensors, which DTensor partitions itself."""
+    b0, h0 = dims[0]
+    layout = _local_layout(lead, b0, h0)
+    if layout is None:
+        if strict:
+            raise ValueError(f"{name}: placement {tuple(lead.placements)} "
+                             f"is not one the kernel takes (a split of "
+                             f"the batch or of the heads)")
+        return fn(*args)
+
+    def per_arg(b, h, missing=Replicate()):
+        return tuple(Shard(b) if p == Shard(b0) and b is not None
+                     else Shard(h) if p == Shard(h0) and h is not None
+                     else missing if p != Replicate()
+                     else Replicate() for p in layout)
+
+    mesh = lead.device_mesh
+    in_pl = tuple(per_arg(b, h) for b, h in dims)
+    # an argument whole over an axis that splits the work (the SSD's B and
+    # C over the heads, a conv's weights over the batch) gets a partial
+    # gradient from each shard: summed over that axis
+    grad_pl = tuple(per_arg(b, h, Partial()) for b, h in dims)
+    out_pl = tuple(per_arg(b, h) for b, h in outs)
+    args = tuple(a if isinstance(a, DTensor) else
+                 DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False) for a in args)
+    args = tuple(a if tuple(a.placements) == pl
+                 else a.redistribute(mesh, pl)
+                 for a, pl in zip(args, in_pl))
+
+    def local(*shards):
+        return fn(*(_ContiguousGrad.apply(t) if t.requires_grad else t
+                    for t in shards))
+
+    # one output's placements as a list: local_map reads a tuple as one
+    # entry per output
+    wrapped = local_map(local, out_placements=out_pl if len(outs) > 1
+                        else list(out_pl[0]), in_placements=in_pl,
+                        in_grad_placements=grad_pl, device_mesh=mesh)
+    return wrapped(*args)
+
+
+def gather(x):
+    """A placed tensor as a plain tensor every rank holds whole (a
+    collective where it is split; differentiable: its gradient returns
+    to the placement), for host copies and for work every device then
+    does alike (scatters DTensor does not partition); anything else as
+    it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``want``, and its gradient too, as GSPMD
+    constrains a cotangent like its primal.  ``redistribute``'s own
+    backward returns the gradient to ``x``'s placements, a partial sum
+    where ``x`` was one, which the producer's backward then gathers
+    around instead of reducing."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.want = mesh, want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.want:
+            grad = grad.redistribute(ctx.mesh, ctx.want)
+        return grad, None, None
+
+
+class _Unflatten(torch.autograd.Function):
+    """``x.view(shape)`` whose gradient is first put back in the view's
+    own placements: torch 2.11's DTensor refuses the backward's flatten
+    of a dimension a constraint split after the view (K/V's head_dim)."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        out = x.view(shape)
+        ctx.shape, ctx.placements = x.shape, tuple(out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad.reshape(ctx.shape), None
+
+
+def unflatten(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.view(shape)``, through :class:`_Unflatten` where placed."""
+    if not isinstance(x, DTensor):
+        return x.view(shape)
+    return _Unflatten.apply(x, shape)
+
+
 def shard(x: torch.Tensor, *axes: Axis) -> torch.Tensor:
-    """``x``, whose dimensions ``axes`` names; no-op without an active
-    ``axis_rules`` context.  Inside one, raises unless ``axes`` names
-    every dimension, and on a mesh of more than one device, where the
-    reference would constrain ``x``'s placement."""
-    active = getattr(_ctx, "active", None)
+    """``x``, whose dimensions ``axes`` names, placed by the active
+    rules; no-op without an active ``axis_rules`` context.  Raises
+    unless ``axes`` names every dimension, and on a mesh of more than
+    one device that no process group spans."""
+    active = _ctx.active
     if active is None:
         return x
-    mesh, _ = active
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"placement across {mesh.size} devices is not ported; shard "
-            f"runs on a mesh of one device only")
+    mesh, rules = active
     if len(axes) != x.ndim:
         raise ValueError(f"axes {axes} do not name the {x.ndim} dimensions "
                          f"of a {tuple(x.shape)} tensor")
-    return x
+    if mesh.device_mesh is None and mesh.size == 1:
+        return x
+    dm = _device_mesh(mesh)
+    want = placements(rules.spec(axes, mesh), mesh)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim,
+                               run_check=False)
+    # through _Constrain even where x is placed so already: its gradient
+    # must be constrained too
+    return _Constrain.apply(x, dm, want)
+
+
+def replicated_like(ref: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x``, a tensor every rank makes alike mid-step (positions, masks,
+    tables), replicated on ``ref``'s mesh when ``ref`` is placed, so
+    that it meets ``ref``'s operands as a DTensor; else ``x``."""
+    if not isinstance(ref, DTensor) or isinstance(x, DTensor):
+        return x
+    mesh = ref.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)

@@ -6,6 +6,17 @@ to the plain version.  A CPU tensor takes the plain version in
 ``ref``, since the kernels exist only for the card.  Each kernel
 module's ``LAUNCHES`` counts its launches.
 
+Placed tensors (DTensors, ``dist.sharding``) reach K1, K2 and K3 as
+their local shards (``sharding.on_shards``, through ``torch.
+distributed.tensor.experimental.local_map``), under the placements
+where the op is local: a split of the batch or of the heads (K/V split
+alike), anything replicated.  K/V split over their sequence (the
+long-context decode's ``kv_seq``) are first gathered over that axis, as
+GSPMD gathers them for the reference's ``_attend``.  On the card any
+other placement raises; on the CPU and on meta tensors (the dry run)
+the plain version then runs on the DTensors, which DTensor partitions
+itself (a head_dim split: partial scores, then an all-reduce).
+
 ``flash_attention`` and ``ssd_state_scan`` are differentiable: each is
 a ``torch.autograd.Function`` whose forward runs the kernel (K2, which
 then also writes each row's log-sum-exp, or K3) and whose backward
@@ -20,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.kernels import arma_fit as _arma
 from repro_torch.kernels import bucket_step as _bucket
 from repro_torch.kernels import decode_attention as _dec
@@ -60,15 +72,31 @@ def flash_attention(q, k, v, q_pos, k_pos, *, scale: float,
                     causal: bool = True, window: int = 0):
     """q: (B,H,S,hd); k: (B,Hkv,T,hd); v: (B,Hkv,T,hd_v); q_pos: (B,S);
     k_pos: (B,T).  Returns (B,H,S,hd_v)."""
-    return _FlashAttention.apply(q, k, v, q_pos, k_pos, scale, causal,
-                                 window)
+    def run(q, k, v, q_pos, k_pos):
+        return _FlashAttention.apply(q, k, v, q_pos, k_pos, scale, causal,
+                                     window)
+
+    if not sharding.is_placed(q):
+        return run(q, k, v, q_pos, k_pos)
+    return sharding.on_shards(
+        "flash_attention", run, q, (q, k, v, q_pos, k_pos),
+        ((0, 1), (0, 1), (0, 1), (0, None), (0, None)), ((0, 1),),
+        strict=q.is_cuda)
 
 
 def decode_attention(q, k, v, k_pos, cur_pos, *, scale: float,
                      window: int = 0):
     """q: (B,H,hd); k/v: (B,Hkv,T,hd); k_pos: (B,T); cur_pos: (B,)."""
-    fn = _dec.decode_attention if q.is_cuda else ref.decode_attention_ref
-    return fn(q, k, v, k_pos, cur_pos, scale=scale, window=window)
+    def run(q, k, v, k_pos, cur_pos):
+        fn = _dec.decode_attention if q.is_cuda else ref.decode_attention_ref
+        return fn(q, k, v, k_pos, cur_pos, scale=scale, window=window)
+
+    if not sharding.is_placed(q):
+        return run(q, k, v, k_pos, cur_pos)
+    return sharding.on_shards(
+        "decode_attention", run, q, (q, k, v, k_pos, cur_pos),
+        ((0, 1), (0, 1), (0, 1), (0, None), (0, None)), ((0, 1),),
+        strict=q.is_cuda)
 
 
 class _SSDStateScan(torch.autograd.Function):
@@ -92,7 +120,11 @@ class _SSDStateScan(torch.autograd.Function):
 def ssd_state_scan(states, decay, s0):
     """states: (b,c,h,p,n); decay: (b,c,h); s0: (b,h,p,n); all fp32.
     Returns (prev (b,c,h,p,n), final (b,h,p,n))."""
-    return _SSDStateScan.apply(states, decay, s0)
+    if not sharding.is_placed(states):
+        return _SSDStateScan.apply(states, decay, s0)
+    return sharding.on_shards(
+        "ssd_state_scan", _SSDStateScan.apply, states, (states, decay, s0),
+        ((0, 2), (0, 2), (0, 1)), ((0, 2), (0, 1)), strict=states.is_cuda)
 
 
 def arma_fit(y, init, p: int, q: int, steps: int, lr: float):

@@ -13,9 +13,10 @@ drawn) and the reference's three steps run on meta tensors:
 - decode: one ``decode_step`` against a full ``init_decode_cache``, with
   ``window_for``'s window.
 
-Each step runs under ``torch.utils.flop_counter.FlopCounterMode`` and
-:class:`ByteCounter`, a dispatch mode that sums every op's tensor input
-and output bytes, views skipped.  The FLOPs are matrix products only
+Each step runs under :class:`StepCounter`, a dispatch mode that counts
+each op's matrix-product FLOPs (``torch.utils.flop_counter``'s
+formulas), its tensor input and output bytes (views skipped) and each
+collective's result bytes by kind.  The FLOPs are matrix products only
 (XLA's count adds elementwise work).  The bytes are the counterpart of
 XLA's "bytes accessed", but unfused: every op reads its inputs from and
 writes its outputs to memory, so they are an upper bound on the traffic.
@@ -34,11 +35,19 @@ batch and cache otherwise: the counterpart of XLA's
 card's 80 GB (activations are not counted), the counted FLOPs and bytes,
 their times at the H100's peaks (``hlo_analysis``), the bottleneck and
 the useful share of the FLOPs (``6 N_active`` per trained token, ``2
-N_active`` per served one).  On a production mesh (16x16, 2x16x16) it
-reports only what it can compute exactly: the argument bytes per device,
-from ``rules_for``'s specs and ``dist.sharding.local_shape``, and the
-model FLOPs per device.  The measured FLOPs, bytes and the collective
-term need a partitioner, which the port does not have: they read None.
+N_active`` per served one).  On a production mesh (16x16, 2x16x16) the
+case is placed: inside a fake process group of the mesh's size
+(``mesh.fake_group``) the parameters, AdamW's moments, the batch and
+the cache are DTensors placed by ``rules_for``'s specs, the step runs
+under ``axis_rules`` with the model's activation constraints, and the
+counter sees one device's local ops and DTensor's collectives, each
+collective's bytes by the reference's rule (result bytes, an all-reduce
+twice) under the reference's names.  It reports that device's argument
+bytes (``local_shape``; DTensor's local shards hold the same), FLOPs,
+bytes, collective bytes, the compute, memory and collective terms (a
+collective at NVLink's rate within a node of ``NODE_CARDS``, at
+InfiniBand's across nodes: every axis of both production meshes) and
+the bottleneck among the three.
 """
 from __future__ import annotations
 
@@ -52,18 +61,25 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.distributed_c10d import _resolve_process_group
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCHS, SHAPES, get_arch, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.dist.sharding import (LONG_CTX_RULES, SERVE_RULES,
                                        TRAIN_RULES, ShardingRules, axes_of,
+                                       axis_rules, clear_propagation_cache,
+                                       distribute, place_tree,
                                        local_shape, unbox)
-from repro_torch.launch.hlo_analysis import (HBM_BW, HBM_BYTES, PEAK_FLOPS,
-                                             PEAK_FLOPS_FP32)
-from repro_torch.launch.mesh import (Mesh, make_local_mesh,
+from repro_torch.launch.hlo_analysis import (HBM_BW, HBM_BYTES, IB_BW,
+                                             NODE_CARDS, NVLINK_BW,
+                                             PEAK_FLOPS, PEAK_FLOPS_FP32)
+from repro_torch.launch.mesh import (Mesh, fake_group, make_local_mesh,
                                      make_production_mesh)
 from repro_torch.models import flags
 from repro_torch.models import model as model_mod
@@ -80,8 +96,9 @@ MESHES: Dict[str, Callable[[], Mesh]] = {
 OPTS = ("bf16_stream", "moe_dispatch", "decode_kv_shard",
         "attn_no_headdim_shard")
 REFUSED = {"where_cache": "where_cache steers how GSPMD partitions the "
-                          "decode cache update; the port writes the cache "
-                          "slot in place and has no partitioner"}
+                          "decode cache update; the port writes an "
+                          "unplaced cache's slot in place and a placed one "
+                          "by that select form always"}
 
 
 # --------------------------------------------------------------------------
@@ -139,7 +156,18 @@ def window_for(cfg: ModelConfig, shape: ShapeConfig) -> Optional[int]:
 
 #: ops that move no data (views are skipped by ``OpOverload.is_view``)
 _NO_DATA = {"_unsafe_view", "empty", "empty_like", "empty_strided",
-            "new_empty", "new_empty_strided"}
+            "new_empty", "new_empty_strided", "wait_tensor",
+            "_wrap_tensor_autograd"}
+_DEVICE = torch.ops.prim.device.default
+#: DTensor's collectives (``_c10d_functional``, ``_dtensor``) under the
+#: reference's names for them (``hlo_analysis.collective_bytes``)
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "all_reduce": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "shard_dim_alltoall": "all-to-all"}
+#: a ring all-reduce moves its buffer twice (reduce-scatter, all-gather)
+COLLECTIVE_FACTOR = {"all-reduce": 2}
 
 
 def _nbytes(tree) -> int:
@@ -148,28 +176,113 @@ def _nbytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-class ByteCounter(TorchDispatchMode):
-    """Sums each op's tensor input and output bytes (an in-place op's
-    operand counts as read and as written); views and allocations that
-    write nothing are skipped."""
+class StepCounter(TorchDispatchMode):
+    """What one device does in a step: the matrix-product FLOPs
+    (``torch.utils.flop_counter``'s formulas), each op's tensor input
+    and output bytes (an in-place op's operand counts as read and as
+    written; views and allocations that write nothing are skipped) and
+    each collective's result bytes by kind, an all-reduce's twice.
+
+    Over DTensors it counts the local ops only: an op on a DTensor is
+    left to DTensor (``NotImplemented``), whose local ops and
+    collectives then reach this mode on plain tensors; the fake tensors
+    DTensor runs to propagate global shapes are not counted."""
 
     def __init__(self):
         super().__init__()
+        self.flops = 0
         self.bytes = 0
+        self.collectives: Dict[str, int] = {}
+        self.collective_t = 0.0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not (func.is_view
-                or func.overloadpacket.__name__ in _NO_DATA):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        packet = func.overloadpacket
+        if func is not _DEVICE:
+            # a composite op (``matmul`` under inference mode) is counted
+            # as the ops it decomposes into
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        leaves, _ = tree_flatten((args, kwargs))
+        if any(isinstance(t, FakeTensor) for t in leaves):
+            return out
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs,
+                                                out_val=out)
+        name = packet.__name__
+        if not (func.is_view or name in _NO_DATA):
             self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+        kind = COLLECTIVES.get(name) if func.namespace in (
+            "_c10d_functional", "_dtensor") else None
+        if kind is not None:
+            moved = _nbytes(out) * COLLECTIVE_FACTOR.get(kind, 1)
+            self.collectives[kind] = self.collectives.get(kind, 0) + moved
+            self.collective_t += moved / link_bw(_group_size(args))
         return out
+
+
+@contextlib.contextmanager
+def _uncounted_sharding_propagation():
+    """DTensor runs each new op, or its decomposition, once more on meta
+    tensors at the global shapes to choose placements and learn the
+    output's shape (``ShardingPropagator``): run that with no mode
+    active, so that no device's count includes it.  The propagator's
+    cache starts empty (and is emptied again on exit), so every op of
+    the step is propagated through the quiet path."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    names = ("propagate_op_sharding_non_cached",
+             "_propagate_tensor_meta_non_cached")
+
+    def quiet(run):
+        def call(*args, **kwargs):
+            with _disable_current_modes():
+                return run(*args, **kwargs)
+        return call
+
+    cached = prop.propagate_op_sharding
+    for name in names:
+        setattr(prop, name, quiet(getattr(prop, name)))
+    prop.propagate_op_sharding = type(cached)(
+        prop.propagate_op_sharding_non_cached)
+    clear_propagation_cache()
+    try:
+        yield
+    finally:
+        for name in names:
+            delattr(prop, name)
+        prop.propagate_op_sharding = cached
+        clear_propagation_cache()
+
+
+def link_bw(cards: int) -> float:
+    """The per-card rate a collective over ``cards`` cards moves at:
+    NVLink within one node, InfiniBand across nodes."""
+    return NVLINK_BW if cards <= NODE_CARDS else IB_BW
+
+
+def _group_size(args) -> int:
+    """The size of the process group a collective's arguments name (its
+    last string argument; a reduction's op is a string too)."""
+    name = [a for a in args if isinstance(a, str)][-1]
+    return _resolve_process_group(name).size()
+
+
+def count(fn: Callable[[], object]) -> StepCounter:
+    """The counts of running ``fn``."""
+    with _uncounted_sharding_propagation(), StepCounter() as counter:
+        fn()
+    return counter
 
 
 def measure(fn: Callable[[], object]) -> Tuple[int, int]:
     """(matrix-product FLOPs, unfused bytes) of running ``fn``."""
-    with FlopCounterMode(display=False) as flops, ByteCounter() as nbytes:
-        fn()
-    return flops.get_total_flops(), nbytes.bytes
+    c = count(fn)
+    return c.flops, c.bytes
 
 
 # --------------------------------------------------------------------------
@@ -185,10 +298,12 @@ def abstract_params(cfg: ModelConfig):
 @dataclasses.dataclass
 class Case:
     """A step on meta tensors and its arguments: (label, shape, dtype,
-    logical axes) of every argument leaf."""
+    logical axes) of every argument leaf, and the leaves themselves
+    (DTensors where the case is placed)."""
     fn: Callable[[], object]
     arguments: List[Tuple[str, Tuple[int, ...], torch.dtype, Tuple]]
     param_elements: int
+    tensors: List[torch.Tensor]
 
 
 def _leaves(prefix: str, tensors: Dict, axes: Dict) -> List:
@@ -201,71 +316,94 @@ def _leaves(prefix: str, tensors: Dict, axes: Dict) -> List:
     return out
 
 
-def _batch_axes(batch: Dict) -> Dict:
-    return {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in batch.items()}
+def _flat(tree) -> List[torch.Tensor]:
+    leaves, _ = tree_flatten(tree)
+    return [t for t in leaves if isinstance(t, torch.Tensor)]
 
 
-def build_case(cfg: ModelConfig, shape: ShapeConfig,
-               remat: bool = True) -> Case:
+def build_case(cfg: ModelConfig, shape: ShapeConfig, remat: bool = True,
+               mesh: Optional[Mesh] = None,
+               rules: Optional[ShardingRules] = None) -> Case:
     """The reference's step for ``shape.mode`` on meta tensors, with its
     arguments' logical axes (parameters by ``dist.sharding.axes_of``,
-    the batch over ``batch``, the cache by ``model.cache_logical_axes``)."""
+    the batch over ``batch``, the cache by ``model.cache_logical_axes``).
+    On a ``mesh`` with a ``DeviceMesh`` (inside ``mesh.fake_group``) the
+    parameters, AdamW's moments, the batch and the cache are placed by
+    ``rules``, and the step runs under ``axis_rules(mesh, rules)``."""
+    placed = mesh is not None and mesh.device_mesh is not None
     lm = abstract_params(cfg)
     boxed = unbox(lm)
     param_axes = axes_of(lm)
     params = _leaves("params.", boxed, param_axes)
     n_elements = sum(math.prod(s) for _, s, _, _ in params)
     B, S = shape.global_batch, shape.seq_len
+    where = dict(mesh=mesh, rules=rules) if placed else {}
+    if placed:
+        distribute(lm, mesh, rules)
+    tensors = list(lm.parameters())
+
+    def run(step):
+        def fn():
+            with (axis_rules(mesh, rules) if placed
+                  else contextlib.nullcontext()):
+                step()
+        return fn
 
     if shape.mode == "train":
         opt = AdamW()
         lm.requires_grad_(True)
         named = dict(lm.named_parameters())
         state = opt.init(named)
-        batch = model_mod.make_inputs(cfg, B, S, device=META)
+        batch = model_mod.make_inputs(cfg, B, S, device=META, **where)
         args = params + [("opt.step", tuple(state.step.shape),
                           state.step.dtype, ())]
         for moment in ("m", "v"):
             args += [(f"opt.{moment}.{key}", shape_, opt.state_dtype, axes)
                      for key, shape_, _, axes in
                      _leaves("", boxed, param_axes)]
-        args += _leaves("batch.", batch, _batch_axes(batch))
+        args += _leaves("batch.", batch, model_mod.batch_axes(batch))
+        tensors += ([state.step] + _flat(state.m) + _flat(state.v)
+                    + _flat(batch))
 
         def train_step():
             loss = model_mod.loss_fn(cfg, lm, batch, remat=remat)
             loss.backward()
             opt.step_(named, {n: p.grad for n, p in named.items()}, state)
 
-        return Case(train_step, args, n_elements)
+        return Case(run(train_step), args, n_elements, tensors)
 
     if shape.mode == "prefill":
-        batch = model_mod.make_inputs(cfg, B, S, device=META)
+        batch = model_mod.make_inputs(cfg, B, S, device=META, **where)
 
         def prefill_step():
-            with torch.inference_mode():
+            with torch.no_grad():
                 model_mod.forward(cfg, lm, batch, return_cache=True)
 
-        return Case(prefill_step,
-                    params + _leaves("batch.", batch, _batch_axes(batch)),
-                    n_elements)
+        return Case(run(prefill_step),
+                    params + _leaves("batch.", batch,
+                                     model_mod.batch_axes(batch)),
+                    n_elements, tensors + _flat(batch))
 
     # decode: one token against a full cache
     window = window_for(cfg, shape)
     cache = model_mod.init_decode_cache(cfg, B, S, window=window,
-                                        device=META)
-    tokens = torch.empty((B, 1), dtype=torch.int32, device=META)
-    cur = torch.empty((B,), dtype=torch.int32, device=META)
-    inputs = {"tokens": tokens, "cur": cur}
+                                        device=META, **where)
+    inputs = {"tokens": torch.empty((B, 1), dtype=torch.int32, device=META),
+              "cur": torch.empty((B,), dtype=torch.int32, device=META)}
+    input_axes = {"tokens": ("batch", None), "cur": ("batch",)}
+    if placed:
+        inputs = place_tree(inputs, input_axes, mesh, rules)
 
     def decode_step():
-        with torch.inference_mode():
-            model_mod.decode_step(cfg, lm, tokens, cache, cur, window=window)
+        with torch.no_grad():
+            model_mod.decode_step(cfg, lm, inputs["tokens"], cache,
+                                  inputs["cur"], window=window)
 
     args = (params + _leaves("cache.", cache,
                              model_mod.cache_logical_axes(cache))
-            + _leaves("", inputs, {"tokens": ("batch", None),
-                                   "cur": ("batch",)}))
-    return Case(decode_step, args, n_elements)
+            + _leaves("", inputs, input_axes))
+    return Case(run(decode_step), args, n_elements,
+                tensors + _flat(cache) + _flat(inputs))
 
 
 def argument_bytes(case: Case, mesh: Mesh, rules: ShardingRules) -> int:
@@ -274,6 +412,13 @@ def argument_bytes(case: Case, mesh: Mesh, rules: ShardingRules) -> int:
     return sum(math.prod(local_shape(shape, rules.spec(axes, mesh), mesh))
                * dtype.itemsize
                for _, shape, dtype, axes in case.arguments)
+
+
+def local_argument_bytes(case: Case) -> int:
+    """The bytes of the step's arguments as this rank holds them: each
+    DTensor's local shard, each plain tensor whole."""
+    return sum(_nbytes(t.to_local() if isinstance(t, DTensor) else t)
+               for t in case.tensors)
 
 
 @contextlib.contextmanager
@@ -309,43 +454,59 @@ def model_flops_per_device(cfg: ModelConfig, shape: ShapeConfig,
     return mult * cfg.active_param_count() * tokens / chips
 
 
+def cut_depth(cfg: ModelConfig, layers: Optional[int]) -> ModelConfig:
+    """``cfg`` at ``layers`` layers (all of them for None); a MoE model
+    keeps at least one MoE layer behind its dense ones."""
+    if layers is None:
+        return cfg
+    dense = min(cfg.num_dense_layers, max(layers - 1, 0))
+    return dataclasses.replace(cfg, num_layers=layers,
+                               num_dense_layers=dense)
+
+
 def run_case(arch: str, shape_name: str, mesh: str = "local",
              remat: bool = True, verbose: bool = True,
-             opts=frozenset()) -> Dict:
+             opts=frozenset(), layers: Optional[int] = None) -> Dict:
+    """One case on ``mesh``; a production mesh's inside a fake process
+    group of its size.  ``layers`` cuts the depth (``cut_depth``)."""
     check_opts(opts)
-    cfg = get_arch(arch)
+    cfg = cut_depth(get_arch(arch), layers)
     shape = get_shape(shape_name)
     m = MESHES[mesh]()
     rules = rules_for(cfg, shape, m.shape["model"], opts=opts)
     t0 = time.perf_counter()
-    with model_flags(opts):
-        case = build_case(cfg, shape, remat=remat)
-        flops = nbytes = None
-        if m.size == 1:   # a partitioner would be needed to split the count
-            flops, nbytes = measure(case.fn)
+    with (fake_group(m.size) if m.size > 1 else contextlib.nullcontext()), \
+            model_flags(opts):
+        m = MESHES[mesh]()
+        case = build_case(cfg, shape, remat=remat, mesh=m, rules=rules)
+        counts = count(case.fn)
+        local_bytes = local_argument_bytes(case)
     arg_bytes = argument_bytes(case, m, rules)
     peak = PEAK_FLOPS_FP32 if cfg.dtype == "float32" else PEAK_FLOPS
-    compute_t = flops / peak if flops is not None else None
-    memory_t = nbytes / HBM_BW if nbytes is not None else None
+    terms = {"compute": counts.flops / peak,
+             "memory": counts.bytes / HBM_BW,
+             "collective": counts.collective_t}
     model_flops = model_flops_per_device(cfg, shape, m.size)
     result = {
         "arch": arch, "shape": shape_name, "opts": sorted(opts),
-        "mesh": mesh, "chips": m.size,
+        "mesh": mesh, "chips": m.size, "layers": cfg.num_layers,
         "trace_s": time.perf_counter() - t0,
         "params": cfg.param_count(),
         "param_elements": case.param_elements,
         "argument_bytes_per_device": arg_bytes,
+        "local_argument_bytes": local_bytes,
         "fits": arg_bytes <= HBM_BYTES,
-        "flops_per_device": flops,
-        "bytes_per_device": nbytes,
-        "collective_bytes_per_device": None,
-        "compute_t": compute_t,
-        "memory_t": memory_t,
-        "collective_t": None,
-        "bottleneck": None if flops is None else
-        ("compute" if compute_t >= memory_t else "memory"),
+        "flops_per_device": counts.flops,
+        "bytes_per_device": counts.bytes,
+        "collective_bytes_per_device": sum(counts.collectives.values()),
+        "collectives": dict(counts.collectives),
+        "compute_t": terms["compute"],
+        "memory_t": terms["memory"],
+        "collective_t": terms["collective"],
+        "bottleneck": max(terms, key=terms.get),
         "model_flops_per_device": model_flops,
-        "useful_flops_frac": model_flops / flops if flops else None,
+        "useful_flops_frac": (model_flops / counts.flops if counts.flops
+                              else None),
     }
     if verbose:
         print(format_case(result), flush=True)
@@ -353,18 +514,19 @@ def run_case(arch: str, shape_name: str, mesh: str = "local",
 
 
 def format_case(r: Dict) -> str:
-    head = (f"[{r['arch']} x {r['shape']} @ {r['mesh']}] "
+    useful = r["useful_flops_frac"]
+    return (f"[{r['arch']} x {r['shape']} @ {r['mesh']}] "
             f"params {r['params'] / 1e9:.3f} B, arguments "
             f"{r['argument_bytes_per_device'] / 1e9:.3f} GB/device "
-            f"({'fits' if r['fits'] else 'does not fit'} 80 GB)")
-    if r["flops_per_device"] is None:
-        return head + ", FLOPs and bytes not measured (no partitioner)"
-    return (head + f", {r['flops_per_device'] / 1e9:.1f} GFLOP, "
-            f"{r['bytes_per_device'] / 1e9:.1f} GB accessed, compute "
-            f"{r['compute_t'] * 1e3:.2f} ms, memory "
-            f"{r['memory_t'] * 1e3:.2f} ms, {r['bottleneck']}-bound, "
-            f"useful {r['useful_flops_frac']:.3f}, traced in "
-            f"{r['trace_s']:.1f} s")
+            f"({'fits' if r['fits'] else 'does not fit'} 80 GB), "
+            f"{r['flops_per_device'] / 1e9:.1f} GFLOP, "
+            f"{r['bytes_per_device'] / 1e9:.1f} GB accessed, "
+            f"{r['collective_bytes_per_device'] / 1e9:.3f} GB collective; "
+            f"compute {r['compute_t'] * 1e3:.2f} ms, memory "
+            f"{r['memory_t'] * 1e3:.2f} ms, collective "
+            f"{r['collective_t'] * 1e3:.2f} ms, {r['bottleneck']}-bound, "
+            f"useful {'-' if useful is None else f'{useful:.3f}'}, traced "
+            f"in {r['trace_s']:.1f} s")
 
 
 def main(argv=None):

@@ -32,6 +32,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (is_placed, replicated_like, shard,
+                                       unflatten)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (Norm, apply_norm, apply_rope,
@@ -127,12 +129,16 @@ def cache_logical_axes(cfg: ModelConfig, long_context: bool = False) -> Dict:
             "pos": ("batch", seq)}
 
 
-def _proj(params: Attention, x, w: str, heads: int, cfg: ModelConfig):
-    """x @ w (+ bias), as (B, S, heads, hd)."""
-    y = x @ getattr(params, w)
+def _proj(params: Attention, x, w: str, heads: int, cfg: ModelConfig,
+          axis: str = "heads"):
+    """x @ w (+ bias), as (B, S, heads, hd).  Placed, w's columns are
+    split as the heads ``axis`` is first, so that each device forms its
+    own heads' columns only (GSPMD's constraint on the result does that
+    by itself; DTensor would form them all and then split them)."""
+    y = x @ shard(getattr(params, w), None, axis)
     if cfg.use_qkv_bias:
-        y = y + getattr(params, "b" + w[1:])
-    return y.view(x.shape[0], x.shape[1], heads, cfg.head_dim)
+        y = y + shard(getattr(params, "b" + w[1:]), axis)
+    return unflatten(y, x.shape[0], x.shape[1], heads, cfg.head_dim)
 
 
 def attention_forward(params: Attention, x, cfg: ModelConfig, positions,
@@ -146,9 +152,12 @@ def attention_forward(params: Attention, x, cfg: ModelConfig, positions,
                             return_cache=return_cache)
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
-    q = _proj(params, x, "wq", cfg.num_heads, cfg)
-    k = _proj(params, src, "wk", cfg.num_kv_heads, cfg)
-    v = _proj(params, src, "wv", cfg.num_kv_heads, cfg)
+    q = shard(_proj(params, x, "wq", cfg.num_heads, cfg),
+              "batch", "seq", "heads", "head_dim")
+    k = shard(_proj(params, src, "wk", cfg.num_kv_heads, cfg, "kv_heads"),
+              "batch", "seq", "kv_heads", "head_dim")
+    v = shard(_proj(params, src, "wv", cfg.num_kv_heads, cfg, "kv_heads"),
+              "batch", "seq", "kv_heads", "head_dim")
     if cfg.pos_emb == "rope" and kv_x is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -164,7 +173,11 @@ def attention_forward(params: Attention, x, cfg: ModelConfig, positions,
         out = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             positions, kpos[None].expand(B, T), scale=scale, causal=False)
-    y = out.transpose(1, 2).reshape(B, S, -1) @ params.wo
+    # placed, the heads whole on each device before they are flattened
+    # (torch 2.11's DTensor flattens no split head_dim)
+    out = shard(out.transpose(1, 2), "batch", "seq", "heads", None)
+    y = shard(out.reshape(B, S, -1) @ shard(params.wo, "heads", None),
+              "batch", "seq", "embed_act")
     if not return_cache:
         return y, None
     return y, {"k": k, "v": v, "pos": positions.to(torch.int32)}
@@ -182,8 +195,8 @@ def attention_decode(params: Attention, x, cfg: ModelConfig, cache: Dict,
         return _mla_decode(params, x, cfg, cache, cur_pos)
     B = x.shape[0]
     q = _proj(params, x, "wq", cfg.num_heads, cfg)
-    k = _proj(params, x, "wk", cfg.num_kv_heads, cfg)
-    v = _proj(params, x, "wv", cfg.num_kv_heads, cfg)
+    k = _proj(params, x, "wk", cfg.num_kv_heads, cfg, "kv_heads")
+    v = _proj(params, x, "wv", cfg.num_kv_heads, cfg, "kv_heads")
     if cfg.pos_emb == "rope":
         q = apply_rope(q, cur_pos[:, None], cfg.rope_theta)
         k = apply_rope(k, cur_pos[:, None], cfg.rope_theta)
@@ -192,14 +205,28 @@ def attention_decode(params: Attention, x, cfg: ModelConfig, cache: Dict,
         q[:, 0], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
         cache["pos"], cur_pos, scale=1.0 / math.sqrt(cfg.head_dim),
         window=window or cfg.sliding_window)
-    y = out.reshape(B, 1, -1) @ params.wo
-    return y, cache
+    y = shard(out, "batch", "heads", None).reshape(B, 1, -1) @ params.wo
+    return shard(y, "batch", None, "embed_act"), cache
 
 
 def _write(cache: Dict, cur_pos, **rows) -> None:
-    """Write each row and cur_pos at slot cur_pos % W, in place."""
+    """Write each row and cur_pos at slot cur_pos % W, in place.  A
+    placed cache is written by a select over its slots and a copy (the
+    reference's ``where_cache`` form), which DTensor partitions on any
+    placement: its in-place scatter takes none where the cache is
+    split."""
     pc = cache["pos"]
     slot = torch.remainder(cur_pos, pc.shape[1])
+    if is_placed(pc):
+        slots = replicated_like(pc, torch.arange(pc.shape[1],
+                                                 device=pc.device))
+        sel = slots[None, :] == slot[:, None]                   # (B, W)
+        for name, row in rows.items():
+            leaf = cache[name]
+            hit = sel.view(sel.shape + (1,) * (leaf.ndim - 2))
+            leaf.copy_(torch.where(hit, row[:, None].to(leaf.dtype), leaf))
+        pc.copy_(torch.where(sel, cur_pos[:, None].to(torch.int32), pc))
+        return
     bidx = torch.arange(pc.shape[0], device=pc.device)
     for name, row in rows.items():
         cache[name][bidx, slot] = row.to(cache[name].dtype)
@@ -220,7 +247,8 @@ def cross_attention_decode(params: Attention, x, cfg: ModelConfig,
     out = ops.decode_attention(
         q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2),
         kpos[None].expand(B, T), cur, scale=1.0 / math.sqrt(cfg.head_dim))
-    return out.reshape(B, 1, -1) @ params.wo
+    out = shard(out, "batch", "heads", None).reshape(B, 1, -1)
+    return shard(out @ params.wo, "batch", None, "embed_act")
 
 
 # --------------------------------------------------------------------------
@@ -261,14 +289,14 @@ def _mla_forward(params: Attention, x, cfg: ModelConfig, positions, *,
     q_nope, q_rope = _mla_q(params, x, cfg, positions)
     ckv, k_rope = _mla_kv(params, x, cfg, positions)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.empty((B, S, H, hd), dtype=x.dtype, device=x.device)
-    k[..., :nope] = (ckv @ params.wk_b).view(B, S, H, nope)
-    k[..., nope:] = k_rope[:, :, None, :]
+    k = torch.cat([(ckv @ params.wk_b).view(B, S, H, nope),
+                   k_rope[:, :, None, :].expand(B, S, H, hd - nope)], dim=-1)
     v = (ckv @ params.wv_b).view(B, S, H, vd)
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), positions,
         positions, scale=1.0 / math.sqrt(hd), causal=True, window=0)
-    y = out.transpose(1, 2).reshape(B, S, H * vd) @ params.wo
+    y = shard(out.transpose(1, 2).reshape(B, S, H * vd) @ params.wo,
+              "batch", "seq", "embed_act")
     if not return_cache:
         return y, None
     return y, {"ckv": ckv, "krope": k_rope,
@@ -284,7 +312,7 @@ def _mla_decode(params: Attention, x, cfg: ModelConfig, cache: Dict,
     _write(cache, cur_pos, ckv=ckv[:, 0], krope=k_rope[:, 0])
     out = _mla_latent_attention(params, q_nope, q_rope, cache, cur_pos, cfg)
     y = out.reshape(B, 1, -1).to(x.dtype) @ params.wo
-    return y, cache
+    return shard(y, "batch", None, "embed_act"), cache
 
 
 def _mla_latent_attention(params: Attention, q_nope, q_rope, cache: Dict,

@@ -29,6 +29,7 @@ from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import gather
 from repro_torch.models import model as model_mod
 
 #: reference subtrees whose leaves are stacked over their layers
@@ -123,7 +124,8 @@ def reference_leaves(lm: nn.Module,
     """The reference tree's leaves by dotted key path (``layers.mixer.
     in_proj``), layer leaves stacked, as fp32 (bf16 widens exactly) or
     native numpy arrays: ``lm``'s values, or its parameters' gradients
-    (``grads``; raises when one is missing)."""
+    (``grads``; raises when one is missing).  A placed leaf is gathered
+    whole first (a collective every rank must join)."""
     flat: Dict[str, np.ndarray] = {}
     for key, (stacked, named) in reference_groups(lm).items():
         arrs = []
@@ -132,7 +134,7 @@ def reference_leaves(lm: nn.Module,
             if t is None:
                 raise ValueError(f"{name}: no gradient")
             # reprolint: disable=R8 -- a host copy of the model is the point (checkpoints, tests): each leaf crosses once, with no device-side staging buffer
-            arrs.append(t.detach().float().cpu().numpy())
+            arrs.append(gather(t.detach()).float().cpu().numpy())
         flat[key] = np.stack(arrs) if stacked else arrs[0]
     return flat
 

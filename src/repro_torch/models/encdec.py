@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Embedding, Norm, apply_mlp,
                                        apply_norm, embed_tokens,
@@ -58,7 +59,8 @@ class EncDec(nn.Module):
         super().__init__()
         self.embed = Embedding(cfg, device)
         self.enc_pos = param((cfg.encoder_seq, cfg.d_model),
-                             model_dtype(cfg), device, (None, "embed"))
+                             model_dtype(cfg), device, (None, "embed"),
+                             table=True)
         self.enc_layers = nn.ModuleList(
             EncBlock(cfg, device) for _ in range(cfg.encoder_layers))
         self.enc_norm = Norm(cfg, device)
@@ -95,14 +97,23 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def encode(params: EncDec, frames, cfg: ModelConfig):
     """frames: (B, T, D) stubbed embeddings -> encoder memory (B, T, D)."""
     B, T, _ = frames.shape
-    x = frames + params.enc_pos[:T]
+    x = shard(frames + params.enc_pos[:T], "batch", "seq", "embed_act")
     pos = _positions(B, T, frames.device)
     for blk in params.enc_layers:
         a, _ = attn.attention_forward(blk.attn, apply_norm(blk.norm1, x, cfg),
                                       cfg, pos, causal=False)
         x = x + a
-        x = x + apply_mlp(blk.mlp, apply_norm(blk.norm2, x, cfg), cfg)
+        x = _residual(x + apply_mlp(blk.mlp, apply_norm(blk.norm2, x, cfg),
+                                    cfg))
     return apply_norm(params.enc_norm, x, cfg)
+
+
+def _residual(x):
+    """A block's output, placed as the transformer block's is (the
+    reference's one constraint on the encoder input reaches every block
+    by GSPMD's propagation; DTensor would carry the MLP's partial sums
+    on into the next block's norm)."""
+    return shard(x, "batch", "seq" if x.shape[1] > 1 else None, "embed_act")
 
 
 def decoder_forward(params: EncDec, tokens, memory, cfg: ModelConfig, *,
@@ -124,7 +135,8 @@ def decoder_forward(params: EncDec, tokens, memory, cfg: ModelConfig, *,
                                       apply_norm(blk.norm_x, x, cfg), cfg,
                                       pos, causal=False, kv_x=memory)
         x = x + a
-        return x + apply_mlp(blk.mlp, apply_norm(blk.norm2, x, cfg), cfg), c
+        return _residual(x + apply_mlp(blk.mlp, apply_norm(blk.norm2, x, cfg),
+                                       cfg)), c
 
     caches = []
     for blk in params.dec_layers:
@@ -141,9 +153,9 @@ def build_cross_cache(params: EncDec, memory, cfg: ModelConfig) -> Dict:
     for blk in params.dec_layers:
         ca = blk.cross_attn
         caches.append({"k": attn._proj(ca, memory, "wk", cfg.num_kv_heads,
-                                       cfg),
+                                       cfg, "kv_heads"),
                        "v": attn._proj(ca, memory, "wv", cfg.num_kv_heads,
-                                       cfg)})
+                                       cfg, "kv_heads")})
     return stack_caches(caches)
 
 
@@ -160,6 +172,7 @@ def decoder_decode(params: EncDec, tokens, cfg: ModelConfig, cache: Dict,
         x = x + attn.cross_attention_decode(
             blk.cross_attn, apply_norm(blk.norm_x, x, cfg), cfg,
             layer_cache(cross_cache, i))
-        x = x + apply_mlp(blk.mlp, apply_norm(blk.norm2, x, cfg), cfg)
+        x = _residual(x + apply_mlp(blk.mlp, apply_norm(blk.norm2, x, cfg),
+                                    cfg))
     x = apply_norm(params.final_norm, x, cfg)
     return x, cache

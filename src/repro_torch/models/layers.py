@@ -18,23 +18,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def param(shape, dtype, device, axes) -> nn.Parameter:
+def param(shape, dtype, device, axes, table: bool = False) -> nn.Parameter:
     """An uninitialised, frozen parameter (filled by ``init`` or convert)
     that records the logical axis of each of its dimensions as
     ``logical_axes``: the tuple the reference boxes the leaf with
-    (``P(value, axes)``), read by ``dist.sharding.axes_of``."""
+    (``P(value, axes)``), read by ``dist.sharding.axes_of``; ``table``
+    marks a table only read by rows (position embeddings), which
+    placement does not gather on use (``dist.sharding.distribute``)."""
     if len(axes) != len(shape):
         raise ValueError(f"axes {axes} do not name the {len(shape)} "
                          f"dimensions of {tuple(shape)}")
     p = nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                      requires_grad=False)
     p.logical_axes = tuple(axes)
+    p.table = table
     return p
 
 
@@ -143,6 +147,8 @@ def apply_mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig):
         h = F.gelu(x @ params.wg, approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
+    # (B, S, f), or a MoE's shared expert's (T, f)
+    h = shard(h, "batch", *("seq",) * (h.ndim - 2), "mlp")
     return h @ params.wo
 
 
@@ -166,7 +172,8 @@ class Embedding(nn.Module):
         if cfg.pos_emb == "learned":
             rows = (max(cfg.encoder_seq, 32_768) if cfg.is_encoder_decoder
                     else 32_768)
-            self.pos = param((rows, cfg.d_model), dt, device, (None, "embed"))
+            self.pos = param((rows, cfg.d_model), dt, device,
+                             (None, "embed"), table=True)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         dense_init_(self.tok, generator, in_axis=1)
@@ -180,17 +187,24 @@ def embed_tokens(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig,
                  positions: Optional[torch.Tensor] = None):
     """Token rows, Gemma's sqrt(d) scale, and with learned positions the
     ``pos`` rows of ``positions`` clipped to the table."""
-    x = params.tok[tokens]
+    # an embedding lookup, not an index: placed, a vocab-split table is
+    # DTensor's masked partial (each device its own rows, then one
+    # reduction) where an index would first move the table, and DTensor's
+    # partitioning of an index's backward (an accumulating scatter) fails
+    # on torch 2.11; its backward sums each row's gradient in fp32.  The
+    # masked partial is reduced before anything is added to it (torch
+    # 2.11 masks an addend on meta tensors with a data-dependent op)
+    x = shard(F.embedding(tokens, params.tok), "batch", "seq", "embed_act")
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     if cfg.pos_emb == "learned" and positions is not None:
         rows = params.pos.shape[0]
-        x = x + params.pos[positions.long().clamp(0, rows - 1)]
-    return x
+        x = x + F.embedding(positions.long().clamp(0, rows - 1), params.pos)
+    return shard(x, "batch", "seq", "embed_act")
 
 
 def lm_head(params: Embedding, x: torch.Tensor, cfg: ModelConfig):
     """Logits over the padded vocabulary."""
     w = params.tok.T if cfg.tie_embeddings else params.head
-    return x @ w
+    return shard(x @ w, "batch", "seq", "vocab")

@@ -46,6 +46,7 @@ from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import is_placed, place_tree, replicated_like
 from repro_torch.models import attention as attn
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import ssm as ssm_mod
@@ -125,8 +126,19 @@ def lm_loss(cfg: ModelConfig, logits, batch: Dict) -> torch.Tensor:
         logits = logits[:, batch["patches"].shape[1]:, :]
     lg = logits[:, :-1, :].float()
     tg = tokens[:, 1:].long()
-    lse = torch.logsumexp(lg, dim=-1)
-    picked = torch.gather(lg, -1, tg[..., None])[..., 0]
+    if is_placed(lg):
+        # vocab-split logits: the log-sum-exp and the pick reduce each
+        # device's own columns (a (B, S) all-reduce each); DTensor would
+        # gather the logits for ``logsumexp`` and cannot partition a
+        # gather on a split dimension
+        top = lg.detach().amax(-1, keepdim=True)
+        lse = (lg - top).exp().sum(-1).log() + top[..., 0]
+        cols = replicated_like(lg, torch.arange(lg.shape[-1],
+                                                device=lg.device))
+        picked = torch.where(cols == tg[..., None], lg, 0.0).sum(-1)
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        picked = torch.gather(lg, -1, tg[..., None])[..., 0]
     return torch.mean(lse - picked)
 
 
@@ -154,8 +166,14 @@ def decode_step(cfg: ModelConfig, params: nn.Module, tokens, cache, cur_pos,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       window: Optional[int] = None,
-                      device: DeviceLike = None) -> Dict:
-    """Empty stacked cache on ``device`` (CUDA unless asked otherwise)."""
+                      device: DeviceLike = None, mesh=None,
+                      rules=None) -> Dict:
+    """Empty stacked cache on ``device`` (CUDA unless asked otherwise);
+    with a ``mesh``, each leaf placed by ``rules`` and its
+    ``cache_logical_axes``."""
+    if mesh is not None:
+        cache = init_decode_cache(cfg, batch, max_seq, window, device)
+        return place_tree(cache, cache_logical_axes(cache), mesh, rules)
     dev = resolve_device(device)
     if cfg.family == "audio":
         kv = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads,
@@ -235,13 +253,20 @@ def cache_logical_axes(cache: Dict, _path=()) -> Dict:
 
 def make_inputs(cfg: ModelConfig, batch: int, seq_len: int, *,
                 device: DeviceLike,
-                generator: Optional[torch.Generator] = None) -> Dict:
+                generator: Optional[torch.Generator] = None,
+                mesh=None, rules=None) -> Dict:
     """Model inputs with the reference's keys, shapes and dtypes: int32
     tokens, frames or patches in the model dtype (a VLM's ``Pn =
     min(num_patches, max(1, seq_len // 4))`` patches and ``seq_len - Pn``
     tokens).  Without ``generator``, empty tensors on ``device`` (shapes
     only: ``"meta"`` for the dry run); with one, tokens uniform in the
-    vocabulary and embeddings 0.02 * normal, drawn on ``device``."""
+    vocabulary and embeddings 0.02 * normal, drawn on ``device``.  With
+    a ``mesh``, each placed by ``rules`` over ``batch`` (every rank
+    draws them alike)."""
+    if mesh is not None:
+        inputs = make_inputs(cfg, batch, seq_len, device=device,
+                             generator=generator)
+        return place_tree(inputs, batch_axes(inputs), mesh, rules)
     dev = resolve_device(device)
     dt = model_dtype(cfg)
 
@@ -265,3 +290,8 @@ def make_inputs(cfg: ModelConfig, batch: int, seq_len: int, *,
         return {"patches": emb((batch, Pn, cfg.d_model)),
                 "tokens": tok((batch, seq_len - Pn))}
     return {"tokens": tok((batch, seq_len))}
+
+
+def batch_axes(batch: Dict) -> Dict:
+    """A batch's logical axes: ``batch`` first, every other dim None."""
+    return {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in batch.items()}

@@ -25,12 +25,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (gather, is_placed, replicated_like,
+                                       shard)
 from repro_torch.models import flags
 from repro_torch.models.layers import (MLP, apply_mlp, dense_init_,
                                        model_dtype, param)
 
 #: (token, expert) pairs dropped at capacity since the count was last 0
 DROPPED = 0
+#: the logical axis the dispatched rows of each expert are placed by
+CAPACITY = "embed"
 
 
 class MoE(nn.Module):
@@ -86,7 +90,7 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.moe_top_k
     T = B * S
-    xt = x.reshape(T, D)
+    xt = shard(x.reshape(T, D), "batch", "embed_act")
     probs, gates, eidx = _route(params, xt, cfg)
     if decode and not (flags.MOE_DECODE_DISPATCH and T * K >= E):
         y = _gather_experts(params, xt, gates, eidx, cfg)
@@ -94,11 +98,17 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
             y = y + apply_mlp(params.shared, xt, cfg)
         return y.reshape(B, S, D), 0.0
 
-    # load-balance aux loss (Switch/DeepSeek style)
-    e_flat = eidx.reshape(-1)                                   # (T*K,)
-    counts = torch.zeros(E, dtype=e_flat.dtype, device=x.device)
+    # load-balance aux loss (Switch/DeepSeek style).  Placed, the pairs'
+    # bookkeeping and the dispatch and combine below run on plain tensors
+    # that every device holds whole and alike (``gather``: the expert ids,
+    # the token rows, the experts' outputs and the gates gathered), so
+    # they need no DTensor partitioning of their scatters (torch 2.11
+    # has none for ``index_add_``); each device's experts take their own
+    # rows of the dispatch buffer.
+    e_flat = gather(eidx).reshape(-1)                            # (T*K,)
+    counts = torch.zeros(E, dtype=e_flat.dtype, device=e_flat.device)
     counts.index_add_(0, e_flat, torch.ones_like(e_flat))
-    f_e = counts.float() / (T * K)
+    f_e = replicated_like(probs, counts.float() / (T * K))
     aux = E * torch.sum(f_e * probs.mean(0)) * cfg.router_aux_coef
 
     # capacity-bounded dispatch: rank within the expert's group
@@ -106,7 +116,7 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
     order = torch.argsort(e_flat, stable=True)
     group_start = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(e_flat)
-    pos[order] = (torch.arange(T * K, device=x.device)
+    pos[order] = (torch.arange(T * K, device=e_flat.device)
                   - group_start[e_flat[order]])
     keep = pos < C
     if not keep.is_meta:          # a meta tensor holds no values to count
@@ -114,15 +124,23 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
     # kept pairs have distinct rows; dropped ones all land on the dump
     # row E*C, which no expert reads (a copy, no accumulation)
     dest = torch.where(keep, e_flat * C + pos, E * C)
-    buf = x.new_zeros((E * C + 1, D))
-    buf[dest] = xt.repeat_interleave(K, dim=0)
-    eo = _expert_products(params, buf[:E * C].view(E, C, D), cfg)
+    rows_in = gather(xt)
+    buf = rows_in.new_zeros((E * C + 1, D))
+    buf[dest] = rows_in.repeat_interleave(K, dim=0)
+    # the reference's constraints name the rows "capacity", which no rule
+    # maps; GSPMD then splits each expert's rows over the axis the expert
+    # weights are split on besides "expert" (the train rules' FSDP
+    # "embed"), so the rows go there (``CAPACITY``)
+    eb = shard(replicated_like(xt, buf[:E * C].view(E, C, D)), "expert",
+               CAPACITY, "embed_act")
+    eo = shard(_expert_products(params, eb, cfg), "expert", CAPACITY,
+               "embed_act")
 
     # combine: each kept pair's row weighted by its gate, summed over K
-    rows = eo.reshape(E * C, D)[torch.where(keep, dest, 0)]
+    rows = gather(eo).reshape(E * C, D)[torch.where(keep, dest, 0)]
     rows = torch.where(keep[:, None], rows, 0)
-    rows = rows * gates.reshape(-1, 1).to(rows.dtype)
-    y = rows.view(T, K, D).sum(1)
+    rows = rows * gather(gates).reshape(-1, 1).to(rows.dtype)
+    y = replicated_like(xt, rows.view(T, K, D).sum(1))
     if "shared" in params._modules:
         y = y + apply_mlp(params.shared, xt, cfg)
     return y.reshape(B, S, D), aux
@@ -135,7 +153,22 @@ def _expert_products(params: MoE, eb, cfg: ModelConfig):
         h = _act(torch.bmm(eb, params.wg), cfg) * h
     else:
         h = F.gelu(h, approximate="tanh")
+    h = shard(h, "expert", CAPACITY, "expert_mlp")
     return torch.bmm(h, params.wo)
+
+
+def _gathered(w, eidx):
+    """w[eidx]: each token's experts' weights, (T, K, ...).  Placed over
+    its experts, each device takes the rows of its own experts (a masked
+    lookup, DTensor's partial sum) and the rows are then summed over the
+    devices: GSPMD's gather from a split operand, an all-reduce of the
+    gathered weights."""
+    if not is_placed(w):
+        return w[eidx]
+    E = w.shape[0]
+    rows = F.embedding(eidx, w.reshape(E, -1))
+    rows = shard(rows, "batch", None, None)
+    return rows.view(*eidx.shape, *w.shape[1:])
 
 
 def _gather_experts(params: MoE, xt, gates, eidx, cfg: ModelConfig):
@@ -143,10 +176,10 @@ def _gather_experts(params: MoE, xt, gates, eidx, cfg: ModelConfig):
     stacks are (T, K, d, f) per weight, as in the reference."""
     T, K = eidx.shape
     xk = xt[:, None, None, :].expand(T, K, 1, xt.shape[1])
-    h = (xk @ params.wi[eidx])[:, :, 0]                         # (T, K, f)
+    h = (xk @ _gathered(params.wi, eidx))[:, :, 0]              # (T, K, f)
     if cfg.act in ("silu", "geglu"):
-        h = _act((xk @ params.wg[eidx])[:, :, 0], cfg) * h
+        h = _act((xk @ _gathered(params.wg, eidx))[:, :, 0], cfg) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    out = (h[:, :, None, :] @ params.wo[eidx])[:, :, 0]         # (T, K, d)
+    out = (h[:, :, None, :] @ _gathered(params.wo, eidx))[:, :, 0]  # (T,K,d)
     return torch.einsum("tkd,tk->td", out, gates.to(out.dtype))

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import is_placed, shard
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init_, model_dtype, param
 
@@ -185,6 +187,33 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
     return z, xc, dt
 
 
+def _placed_in_proj(params: SSM, x, cfg: ModelConfig):
+    """Placed prefill's (z, xc, dt) and conv: in_proj's column blocks
+    z, x, B|C and dt formed apart, each split over ``ssm_inner`` (dt's
+    over ``ssm_heads``), and x's and B|C's convs apart.  A split of the whole
+    product's columns (the reference's constraint on xc) cuts across the
+    blocks, and DTensor gathers a split dimension to slice it; GSPMD
+    moves the pieces instead.  Returns (z, xc after the conv, dt, xc
+    before it)."""
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    w = shard(params.in_proj, None, None)
+    cw = shard(params.conv_w, None, None)
+    cb = shard(params.conv_b, None)
+
+    def cols(lo, hi, axis):
+        return x @ shard(w[:, lo:hi], None, axis)
+
+    z = cols(0, di, "ssm_inner")
+    xp = cols(di, 2 * di, "ssm_inner")
+    bc = cols(2 * di, 2 * di + 2 * N, "ssm_inner")
+    dt = cols(2 * di + 2 * N, w.shape[1], "ssm_heads")
+    xs = _causal_conv(xp, shard(cw[:, :di], None, "ssm_inner"),
+                      shard(cb[:di], "ssm_inner"))
+    bcs = _causal_conv(bc, shard(cw[:, di:], None, "ssm_inner"),
+                       shard(cb[di:], "ssm_inner"))
+    return z, (xs, bcs), dt, (xp, bc)
+
+
 def _silu(x):
     """``jax.nn.silu`` op for op: x * 1 / (1 + exp(-x)), each op rounded
     to x's dtype.  In bf16, ``F.silu``'s single rounding differs from it
@@ -203,8 +232,15 @@ def _conv(xp, w, b):
 
 
 def _causal_conv(xc, w, b):
-    """Depthwise causal conv in the input dtype.  xc: (B, L, C); w: (W, C)."""
-    return _conv(F.pad(xc, (0, 0, w.shape[0] - 1, 0)), w, b)
+    """Depthwise causal conv in the input dtype.  xc: (B, L, C); w: (W, C).
+    Placed, on each device's shards (batch, channels): it is local."""
+    def conv(xc, w, b):
+        return _conv(F.pad(xc, (0, 0, w.shape[0] - 1, 0)), w, b)
+
+    if not sharding.is_placed(xc):
+        return conv(xc, w, b)
+    return sharding.on_shards("causal_conv", conv, xc, (xc, w, b),
+                              ((0, 2), (None, 1), (None, 0)), ((0, 2),))
 
 
 def _gated_out(cfg: ModelConfig, params: SSM, y, z, x_conv):
@@ -224,24 +260,41 @@ def ssm_forward(params: SSM, x, cfg: ModelConfig,
     Bsz, L, _ = x.shape
     di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
                     cfg.ssm_headdim)
-    zxbcdt = x @ params.in_proj
-    z, xc, dtl = _split_proj(cfg, zxbcdt)
-    xc = _causal_conv(xc, params.conv_w, params.conv_b)
-    xs = xc[..., :di].float()
-    Bm = xc[..., di:di + N].float()
-    Cm = xc[..., di + N:].float()
+    if is_placed(params.in_proj):
+        z, (xs, bcs), dtl, pre = _placed_in_proj(params, x, cfg)
+        xs, Bm, Cm = xs.float(), bcs[..., :N].float(), bcs[..., N:].float()
+    else:
+        zxbcdt = x @ params.in_proj
+        z, xc, dtl = _split_proj(cfg, zxbcdt)
+        xc = shard(xc, "batch", "seq", "ssm_inner")
+        pre = xc
+        xc = _causal_conv(xc, params.conv_w, params.conv_b)
+        xs = xc[..., :di].float()
+        Bm = xc[..., di:di + N].float()
+        Cm = xc[..., di + N:].float()
     dt = F.softplus(dtl.float() + params.dt_bias)
     A = -torch.exp(params.A_log)
-    y, final = ssd_chunked(
-        xs.reshape(Bsz, L, H, Pd), dt, A, Bm, Cm, cfg.ssm_chunk,
-        initial_state=None if initial_state is None
-        else initial_state["ssm"])
-    out = _gated_out(cfg, params, y, z, xs)
+    xh = shard(xs.reshape(Bsz, L, H, Pd), "batch", "seq", "ssm_heads", None)
+    args = (xh, dt, A, Bm, Cm) + (() if initial_state is None
+                                  else (initial_state["ssm"],))
+
+    def scan(x, dt, A, Bm, Cm, s0=None):
+        return ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk, initial_state=s0)
+
+    if is_placed(xh):   # local over the batch and the heads: on the shards
+        y, final = sharding.on_shards(
+            "ssd_chunked", scan, xh, args,
+            ((0, 2), (0, 2), (None, 0), (0, None), (0, None),
+             (0, 1))[:len(args)], ((0, 2), (0, 1)))
+    else:
+        y, final = scan(*args)
+    out = shard(_gated_out(cfg, params, y, z, xs), "batch", "seq", "embed_act")
     if not return_cache:
         return out, None
     # conv cache = the last (W-1) *pre-activation* conv inputs, left-padded
     # with zeros when the prompt is shorter
-    pre = zxbcdt[..., di:di + di + 2 * N]
+    if isinstance(pre, tuple):
+        pre = torch.cat(pre, dim=-1)
     if L >= CONV_WIDTH - 1:
         conv_cache = pre[:, -(CONV_WIDTH - 1):, :]
     else:
@@ -259,12 +312,15 @@ def ssm_decode(params: SSM, x, cfg: ModelConfig, cache: Dict):
     Bsz = x.shape[0]
     di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
                     cfg.ssm_headdim)
-    z, xc_new, dtl = _split_proj(cfg, x @ params.in_proj)     # (B, 1, .)
+    # placed, the one token's projection and conv output are gathered
+    # once each: every slice of a split row below would gather it again
+    zxbcdt = shard(x @ params.in_proj, "batch", None, None)   # (B, 1, .)
+    z, xc_new, dtl = _split_proj(cfg, zxbcdt)
     window = torch.cat([cache["conv"], xc_new.to(cache["conv"].dtype)],
                        dim=1)                                # (B, W, C)
     conv_out = torch.einsum("bwc,wc->bc", window.float(),
                             params.conv_w.float())
-    conv_out = _silu(conv_out + params.conv_b.float())
+    conv_out = shard(_silu(conv_out + params.conv_b.float()), "batch", None)
     xs = conv_out[:, :di]
     Bm = conv_out[:, di:di + N]
     Cm = conv_out[:, di + N:]

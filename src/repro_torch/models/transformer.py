@@ -22,6 +22,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -147,7 +148,7 @@ def apply_block(params: Block, x, cfg: ModelConfig, positions, *,
                                       window=window)
     x = x + a
     f, aux = _ffn(params, apply_norm(params.norm2, x, cfg), cfg, False)
-    return x + f, cache, aux
+    return shard(x + f, "batch", "seq", "embed_act"), cache, aux
 
 
 def apply_block_decode(params: Block, x, cfg: ModelConfig, cache, cur_pos,
@@ -157,7 +158,9 @@ def apply_block_decode(params: Block, x, cfg: ModelConfig, cache, cur_pos,
                                      window=window)
     x = x + a
     f, _ = _ffn(params, apply_norm(params.norm2, x, cfg), cfg, True)
-    return x + f, cache
+    # placed as the full-sequence block's output is (GSPMD propagates
+    # that constraint here; DTensor would keep the FFN's partial sums)
+    return shard(x + f, "batch", None, "embed_act"), cache
 
 
 def stack_caches(caches: List[Dict]) -> Dict:

@@ -5,7 +5,9 @@ parameter tree, keyed by its key path (``k:<name>||k:<name>...``, the
 ``jax.tree_util`` path of a nested dict), layer leaves stacked along
 their leading axis, bf16 stored as fp32 (npz has no bf16; the restore
 casts back, exactly), and the step, when given, under ``__step__``.  A
-file saved by either package restores in the other.
+file saved by either package restores in the other.  A placed model's
+leaves are gathered whole to save (every rank joins; rank 0 writes) and
+placed again as they restore (each rank keeps its shard).
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch import nn
 
 from repro_torch.models.convert import _stack_of, reference_leaves
@@ -26,9 +30,11 @@ def _key(dotted: str) -> str:
 
 
 def save(path: str, params: nn.Module, step: Optional[int] = None) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     flat = {_key(name): arr
             for name, arr in reference_leaves(params).items()}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     if step is not None:
         flat["__step__"] = np.asarray(step)
     np.savez(path, **flat)
@@ -54,5 +60,10 @@ def restore(path: str, like: nn.Module) -> Tuple[nn.Module, Optional[int]]:
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: checkpoint shape {arr.shape}, "
                                  f"parameter {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.asarray(arr, np.float32)))
+            src = torch.from_numpy(np.asarray(arr, np.float32))
+            if isinstance(p.data, DTensor):
+                src = distribute_tensor(src.to(p.to_local().device, p.dtype),
+                                        p.device_mesh, p.placements,
+                                        src_data_rank=None)
+            p.copy_(src)
     return like, step

@@ -25,6 +25,8 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.dist.sharding import placed_like
+
 Tensors = Mapping[str, torch.Tensor]
 
 
@@ -45,9 +47,8 @@ class AdamW:
     state_dtype: torch.dtype = torch.float32
 
     def init(self, params: Tensors) -> AdamWState:
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=self.state_dtype,
-                               device=p.device)
+        def zeros(p):       # placed like p where p is a DTensor
+            return torch.zeros_like(p, dtype=self.state_dtype)
         dev = next(iter(params.values())).device
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           m={n: zeros(p) for n, p in params.items()},
@@ -93,6 +94,7 @@ class AdamW:
                ) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
         """The reference's ``update``: (updates in each parameter's dtype,
         the new state).  The moments of ``state`` are updated in place."""
+        grads = {n: placed_like(params[n], grads[n]) for n in params}
         step, *consts = self._prepare(grads, state)
         updates = {n: self._leaf(params[n], grads[n], state.m[n],
                                  state.v[n], *consts) for n in params}
@@ -103,6 +105,7 @@ class AdamW:
               state: AdamWState) -> AdamWState:
         """``update`` and ``apply_updates`` at once, leaf by leaf, in place:
         each parameter gets its update before the next leaf's is made."""
+        grads = {n: placed_like(params[n], grads[n]) for n in params}
         step, *consts = self._prepare(grads, state)
         for n, p in params.items():
             p.add_(self._leaf(p, grads[n], state.m[n], state.v[n], *consts))

@@ -32,7 +32,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_local_mesh
 
-#: FlopCounterMode counts matrix products only; XLA's count adds the
+#: the dry run counts matrix products only; XLA's count adds the
 #: elementwise work (norms, softmax, rope, activations, the SSM's decay
 #: chain, AdamW's updates), which on these reduced configs is 1-11% of
 #: the total.  So the port's count must lie in [0.85, 1.0] of XLA's.
@@ -98,24 +98,30 @@ def test_rules_and_window_match_reference(rd, arch, opt):
 def test_params_and_per_device_arguments_on_the_production_mesh(arch):
     """``params`` is the config's analytic count (the figure model FLOPs
     use); ``param_elements`` sums the meta-built parameters.  On 16x16
-    nothing is traced: FLOPs, bytes and the collective term read None;
-    the arguments are split over the mesh."""
-    cfg = get_arch(arch)
-    prod = dryrun.run_case(arch, "train_4k", mesh="16x16", verbose=False)
+    (a fake group of 256) the step is placed and traced, here at full
+    width and 2 layers: FLOPs, bytes, collective bytes, the three terms
+    and the bottleneck are numbers; the arguments are split over the
+    mesh, DTensor's local shards as ``argument_bytes`` counts them."""
+    cfg = dryrun.cut_depth(get_arch(arch), 2)
+    prod = dryrun.run_case(arch, "train_4k", mesh="16x16", verbose=False,
+                           layers=2)
     assert prod["params"] == cfg.param_count()
     lm = dryrun.abstract_params(cfg)
     assert prod["param_elements"] == sum(p.numel() for p in lm.parameters())
-    assert prod["chips"] == 256
+    assert prod["chips"] == 256 and prod["layers"] == 2
     for key in ("flops_per_device", "bytes_per_device", "compute_t",
                 "memory_t", "collective_t", "useful_flops_frac",
-                "bottleneck", "collective_bytes_per_device"):
-        assert prod[key] is None, key
+                "collective_bytes_per_device"):
+        assert prod[key] > 0, key
+    assert prod["bottleneck"] in ("compute", "memory", "collective")
+    assert prod["local_argument_bytes"] == prod["argument_bytes_per_device"]
     whole = dryrun.argument_bytes(
         dryrun.build_case(cfg, SHAPES["train_4k"]), make_local_mesh(),
         dryrun.rules_for(cfg, SHAPES["train_4k"], 1))
     assert whole / 256 <= prod["argument_bytes_per_device"] < whole / 16
     assert prod["model_flops_per_device"] == pytest.approx(
         6 * cfg.active_param_count() * 256 * 4096 / 256)
+    assert not torch.distributed.is_initialized()
 
 
 def _small(mode):
@@ -185,7 +191,8 @@ def test_model_flags_follow_opts_and_are_restored():
 def test_cli_all_for_one_arch(tmp_path, monkeypatch, capsys):
     """``--all`` over Whisper-tiny's four shapes at full size on the meta
     device: every case traced and written, exit 0; a case that fails is
-    recorded and the exit code is 1."""
+    recorded and the exit code is 1; on 16x16 every case is placed and
+    traced with its three terms."""
     monkeypatch.setattr(dryrun, "ARCHS", {"whisper-tiny":
                                           ARCHS["whisper-tiny"]})
     out = tmp_path / "report.json"
@@ -211,4 +218,12 @@ def test_cli_all_for_one_arch(tmp_path, monkeypatch, capsys):
     rows = json.loads(out.read_text())
     assert rows[2] == {"arch": "whisper-tiny", "shape": "decode_32k",
                        "error": "boom"}
-    assert all(r["flops_per_device"] is None for r in rows if "error" not in r)
+    for r in rows:
+        if "error" in r:
+            continue
+        assert r["mesh"] == "16x16" and r["chips"] == 256
+        assert r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+        assert r["collective_bytes_per_device"] > 0
+        assert r["collective_t"] > 0
+        assert r["bottleneck"] in ("compute", "memory", "collective")
+    assert not torch.distributed.is_initialized()

@@ -27,8 +27,8 @@ from repro.models import model as jmodel
 from repro.models import ssm as jssm
 from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
 from repro_torch.dist import sharding as sh
-from repro_torch.launch.mesh import (Mesh, make_local_mesh,
-                                     make_production_mesh)
+from repro_torch.launch.mesh import (Mesh, fake_group, make_local_mesh,
+                                     make_mesh, make_production_mesh)
 from repro_torch.models import attention, model, ssm
 
 META = torch.device("meta")
@@ -251,6 +251,12 @@ def test_merge_prefill_cache_matches_reference(arch):
 
 
 def test_shard_is_a_noop_outside_axis_rules_and_raises_across_devices():
+    """No-op outside ``axis_rules`` and on one device without a process
+    group; across devices it places ``x`` (a fake group of 2: batch
+    over data, embed's data axis already used), and it raises only on a
+    mesh no process group spans."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     x = torch.ones(4, 4)
     assert sh.shard(x, "batch", "embed") is x
     with sh.axis_rules(make_local_mesh(), sh.TRAIN_RULES):
@@ -259,8 +265,16 @@ def test_shard_is_a_noop_outside_axis_rules_and_raises_across_devices():
             sh.shard(x, "batch")
     two = Mesh(("data", "model"), {"data": 2, "model": 1})
     with sh.axis_rules(two, sh.TRAIN_RULES):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="no process group"):
             sh.shard(x, "batch", "embed")
+    with fake_group(2):
+        mesh = make_mesh((2, 1), ("data", "model"), device_type="cpu")
+        with sh.axis_rules(mesh, sh.TRAIN_RULES):
+            y = sh.shard(x, "batch", "embed")
+        assert isinstance(y, DTensor)
+        assert tuple(y.placements) == (Shard(0), Replicate())
+        assert tuple(y.to_local().shape) == (2, 4)
+    assert not torch.distributed.is_initialized()
     assert sh.shard(x, "batch") is x      # the context is gone again
 
 
