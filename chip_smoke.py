@@ -41,7 +41,8 @@ which must pass for the run to exit 0:
    never calls it; no single PyTorch call computes K3's scan); the
    backward kernels at the trained shapes and at StableLM-12B's,
    Gemma-7B's and DeepSeek-V3's MLA widths (K2's forward also at
-   StableLM-12B's hd 160 and Gemma-7B's hd 256), K2's beside the autograd
+   StableLM-12B's hd 160, Gemma-7B's hd 256 and, both ways, at the train
+   example's hd 96, B = 8, S = T = 128), K2's beside the autograd
    backward of ``scaled_dot_product_attention`` (timed only), with each
    of its kernels' device time;
 4. serve: StarCoder2-7B (dense), Zamba2-7B (hybrid: 81 Mamba2 layers
@@ -100,7 +101,8 @@ which must pass for the run to exit 0:
    both steps' ms.  DeepSeek-V3 (5 of 61 layers: MLA, MoE) and
    Zamba2-7B (K3) run a prefill and ``PLACED_DECODE`` decode steps under
    ``SERVE_RULES`` against the unplaced run: logits within
-   ``PLACED_LOGIT_TOL`` (or bit for bit), K1, K2 and K3 launches matching
+   ``PLACED_LOGIT_TOL`` (or bit for bit), the MoE pairs dropped at
+   capacity (``moe.DROPPED``) equal, K1, K2 and K3 launches matching
    the work, each through ``local_map``;
 7. dryrun: ``launch.dryrun`` on the host, on the meta device, for all 10
    architectures x 4 shapes at full size (parameters, argument bytes on
@@ -189,8 +191,10 @@ inits, repeats, and a row alone, in a batch and permuted.  After the
 simulation it is timed at the run's longest rows and at 8 replicas of
 them (the batch a fleet of replicas fits at once).
 
-The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.
+The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line,
+phase 6's summary (``{"placement": ...}``: each run's step ms or
+seconds, whether bit for bit, the pairs dropped; placed, then unplaced)
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1036,6 +1040,7 @@ def time_kernels(dev, errs):
               causal=False)
     flash_row("stablelm-12b", 1, 32, 8, 2048, 160)
     flash_row("gemma-7b", 1, 16, 16, 2048, 256)
+    flash_row("train example", 8, 8, 8, 128, 96)
     decode_row("whisper-tiny self", 4, 6, 6, 4096, 64, fill)
     decode_row("whisper-tiny cross", 4, 6, 6, 1500, 64, [1499] * 4)
 
@@ -1060,6 +1065,7 @@ def time_kernels(dev, errs):
     bwd_row("deepseek-v3-671b MLA", 1, 128, 128, 2000, 192, vd=128)
     bwd_row("stablelm-12b", 1, 32, 8, 2048, 160)
     bwd_row("gemma-7b", 1, 16, 16, 2048, 256)
+    bwd_row("train example", 8, 8, 8, 128, 96)
     bwd_row("whisper-tiny encoder", 1, 6, 6, 1500, 64, causal=False)
     bwd_row("whisper-tiny cross", 1, 6, 6, 2000, 64, T=1500, causal=False)
 
@@ -1806,7 +1812,8 @@ def placed_train(dev, mesh) -> dict:
             got["counts"]["flash_attention"]:
         raise SystemExit("placement: a placed K2 call did not go through "
                          "local_map")
-    return got["counts"]
+    return got["counts"], {"step_ms": [got["ms"], want["ms"]],
+                           "bit_for_bit": exact}
 
 
 def placed_serve(dev, mesh, arch: str) -> dict:
@@ -1815,10 +1822,12 @@ def placed_serve(dev, mesh, arch: str) -> dict:
     unplaced and then with the same weights, inputs and tokens placed
     by ``SERVE_RULES`` on ``mesh``: every step's logits against the
     unplaced run's (rel L2, ``PLACED_LOGIT_TOL``; printed whether bit
-    for bit), and the placed run's K1/K2/K3 launches, which must match
-    the work and all go through ``local_map``.  Returns them."""
+    for bit), the MoE pairs each run dropped at capacity (``moe.DROPPED``,
+    equal), and the placed run's K1/K2/K3 launches, which must match
+    the work and all go through ``local_map``.  Returns them and the
+    run's summary figures."""
     from repro_torch.dist import sharding as sh
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
 
     cfg = served_config(arch)
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1857,15 +1866,19 @@ def placed_serve(dev, mesh, arch: str) -> dict:
         torch.cuda.synchronize()
         return out, toks
 
+    moe.DROPPED = 0
     t = time.perf_counter()
     want, toks = run(False)
     plain_s = time.perf_counter() - t
+    dropped = [0, moe.DROPPED]
     sh.distribute(params, mesh, sh.SERVE_RULES)
     reset_model_counts()
+    moe.DROPPED = 0
     with local_map_calls() as calls:
         t = time.perf_counter()
         got, _ = run(True, toks)
         placed_s = time.perf_counter() - t
+    dropped[0] = moe.DROPPED
     counts = model_counts()
     rel = [float((g - w).norm() / w.norm()) for g, w in zip(got, want)]
     exact = all(torch.equal(g, w) for g, w in zip(got, want))
@@ -1875,10 +1888,14 @@ def placed_serve(dev, mesh, arch: str) -> dict:
         f"rel L2 up to {max(rel):.2e} "
         f"({'bit for bit' if exact else f'tol {PLACED_LOGIT_TOL:g}'}); "
         f"{plain_s:.2f} s unplaced, {placed_s:.2f} s placed (host "
-        f"clock, first calls); launches {counts}, expected {expect}; "
-        f"local_map calls {calls}")
+        f"clock, first calls); MoE pairs dropped at capacity {dropped[0]} "
+        f"placed, {dropped[1]} unplaced; launches {counts}, expected "
+        f"{expect}; local_map calls {calls}")
     if not (exact or max(rel) <= PLACED_LOGIT_TOL):
         raise SystemExit(f"placement {arch}: placed logits disagree")
+    if dropped[0] != dropped[1]:
+        raise SystemExit(f"placement {arch}: the placed run dropped "
+                         f"{dropped[0]} pairs, the unplaced one {dropped[1]}")
     if any(counts[k] != v for k, v in expect.items()):
         raise SystemExit(f"placement {arch}: launch counts do not match the "
                          f"served work")
@@ -1892,15 +1909,18 @@ def placed_serve(dev, mesh, arch: str) -> dict:
     del params, want, got
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"s": [placed_s, plain_s], "bit_for_bit": exact,
+                    "dropped": dropped}
 
 
-def placement(dev) -> dict:
+def placement(dev):
     """[placement]: an NCCL process group of one rank on ``dev`` and
     ``make_local_mesh()``, (1, 1) with a ``DeviceMesh``; the placed
     training step and the placed serving runs.  Nothing is caught: a
     failing group or ``local_map`` fails the run.  Returns each run's
-    kernel launch counts."""
+    kernel launch counts and the phase's summary (each figure placed,
+    then unplaced), which ``main`` prints next to the last line so that
+    it reaches the record whatever the log's length."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_local_mesh
@@ -1913,12 +1933,15 @@ def placement(dev) -> dict:
         if mesh.device_mesh is None or mesh.size != 1:
             raise SystemExit(f"placement: make_local_mesh() gave {mesh}")
         log(f"  make_local_mesh(): {mesh.shape}, {mesh.device_mesh}")
-        by_run = {"placed train": placed_train(dev, mesh)}
+        by_run, summary = {}, {}
+        by_run["placed train"], summary["train " + PLACED_TRAIN[0]] = \
+            placed_train(dev, mesh)
         for arch in PLACED_SERVED:
-            by_run[f"placed serve {arch}"] = placed_serve(dev, mesh, arch)
+            by_run[f"placed serve {arch}"], summary[f"serve {arch}"] = \
+                placed_serve(dev, mesh, arch)
     finally:
         dist.destroy_process_group()
-    return by_run
+    return by_run, summary
 
 
 # ---------------------------------------------------------------- dry run
@@ -2822,7 +2845,8 @@ def main() -> int:
         "= (1, 1): the placed training step and serving runs against the "
         "unplaced ones, every kernel through local_map")
     t0 = time.perf_counter()
-    by_run.update(placement(dev))
+    placed_runs, placed_summary = placement(dev)
+    by_run.update(placed_runs)
     log(f"[placement] done in {time.perf_counter() - t0:.1f} s wall")
     for row in rows:
         row["launches_by_run"] = {a: n[row["name"]]
@@ -2875,6 +2899,7 @@ def main() -> int:
         f" wall")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
+    print(json.dumps({"placement": placed_summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

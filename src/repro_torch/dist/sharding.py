@@ -410,10 +410,113 @@ def on_shards(name: str, fn, lead, args, dims, outs, strict: bool = False):
 def gather(x):
     """A placed tensor as a plain tensor every rank holds whole (a
     collective where it is split; differentiable: its gradient returns
-    to the placement), for host copies and for work every device then
-    does alike (scatters DTensor does not partition); anything else as
-    it is."""
+    to the placement), for host copies and checks; anything else as it
+    is."""
     return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def row_axes(x: DTensor, name: str) -> Tuple[int, ...]:
+    """The mesh dims that split ``x``'s rows (dim 0), in mesh order.
+    Raises where an axis splits another dimension or holds a partial
+    sum: work on each device's own rows (``row_pieces``) takes neither."""
+    if any(p not in (Replicate(), Shard(0)) for p in x.placements):
+        raise ValueError(f"{name}: placement {tuple(x.placements)} is not "
+                         f"one a split of the rows takes")
+    return tuple(i for i, p in enumerate(x.placements) if p == Shard(0))
+
+
+def row_pieces(counts: torch.Tensor, x: DTensor,
+               name: str) -> Tuple[torch.Tensor, int]:
+    """``counts``, a plain (n,) tensor this device computed from its own
+    rows of ``x``, all-gathered over the mesh axes that split the rows:
+    an (R, n) plain tensor, a row a piece in the rows' order, and the
+    index of this device's piece.  A row split's pieces are contiguous
+    in mesh order, the first axis major (DTensor's and GSPMD's), so
+    ``every[:r].sum(0)`` counts what the rows before this piece hold."""
+    mesh = x.device_mesh
+    axes = row_axes(x, name)
+    pl = [Shard(0) if i in axes else Replicate() for i in range(mesh.ndim)]
+    R, n = math.prod(mesh.size(i) for i in axes), counts.numel()
+    every = DTensor.from_local(counts[None], mesh, pl, run_check=False,
+                               shape=(R, n), stride=(n, 1)).full_tensor()
+    coord, r = mesh.get_coordinate(), 0
+    for i in axes:
+        r = r * mesh.size(i) + coord[i]
+    return every, r
+
+
+def chunk(n: int, parts: int, j: int) -> Tuple[int, int]:
+    """[lo, hi) of chunk j of a dimension of n split in ``parts`` (DTensor's
+    chunks: ceil(n / parts) each, the last ones short or empty)."""
+    size = -(-n // parts)
+    return min(j * size, n), min((j + 1) * size, n)
+
+
+def take(x: DTensor, dim: int, want, name: str) -> torch.Tensor:
+    """The pieces of ``x``'s dimension ``dim`` that ``want(j)`` names for
+    the device at coordinate j of the one mesh axis that splits ``dim``
+    (a list of global ``(lo, hi)`` ranges), laid end to end in that
+    order, as this device's plain local tensor.  One all-to-all over
+    that axis, each device sending each other only the parts of its
+    chunk they want: GSPMD's collective-permute of a dimension split
+    anew, where a DTensor slice across chunk bounds gathers the whole
+    dimension.  The sizes follow from the shape and the mesh alone.  No
+    gradient (serving steps)."""
+    from torch.distributed._functional_collectives import \
+        all_to_all_single
+
+    mesh = x.device_mesh
+    axes = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+    if len(axes) != 1 or any(p.is_partial() for p in x.placements):
+        raise ValueError(f"{name}: placement {tuple(x.placements)} does "
+                         f"not split dim {dim} over one mesh axis, or "
+                         f"holds a partial sum")
+    (a,) = axes
+    parts, n = mesh.size(a), x.shape[dim]
+    me = mesh.get_coordinate()[a]
+
+    def clip(lo, hi, i):
+        """[lo, hi) within chunk i (possibly empty)."""
+        lo_i, hi_i = chunk(n, parts, i)
+        lo = min(max(lo, lo_i), hi_i)
+        return lo, max(lo, min(hi, hi_i))
+
+    local = x.to_local().movedim(dim, 0)
+    own = chunk(n, parts, me)[0]
+    send = [[clip(lo, hi, me) for lo, hi in want(j)] for j in range(parts)]
+    recv = [[clip(lo, hi, i) for lo, hi in want(me)] for i in range(parts)]
+    data = all_to_all_single(
+        torch.cat([local[:0]] + [local[lo - own:hi - own]
+                                 for pieces in send for lo, hi in pieces]),
+        [sum(hi - lo for lo, hi in p) for p in recv],
+        [sum(hi - lo for lo, hi in p) for p in send], (mesh, a))
+    # data holds each source's pieces in turn; lay them out range by range
+    at, rows = 0, {}
+    for i, pieces in enumerate(recv):
+        for k, (lo, hi) in enumerate(pieces):
+            rows[k, i] = (at, at + hi - lo)
+            at += hi - lo
+    return torch.cat([data[rows[k, i][0]:rows[k, i][1]]
+                      for k in range(len(want(me)))
+                      for i in range(parts)]).movedim(0, dim)
+
+
+def constraint(*axes: Axis) -> Tuple[Placement, ...]:
+    """The placements ``shard(x, *axes)`` gives ``x`` under the active
+    rules (which must be on a mesh with a ``DeviceMesh``)."""
+    mesh, rules = _ctx.active
+    return placements(rules.spec(axes, mesh), mesh)
+
+
+def from_pieces(local: torch.Tensor, mesh, pl: Sequence[Placement],
+                shape: Sequence[int]) -> DTensor:
+    """``local``, this device's piece of a ``shape`` tensor placed by
+    ``pl`` (over a ``Partial()`` axis a term of a sum), as a DTensor;
+    differentiable, its gradient returned in ``pl`` (replicated over a
+    partial axis: each term's gradient is the sum's)."""
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, tuple(pl), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
 
 
 class _Constrain(torch.autograd.Function):

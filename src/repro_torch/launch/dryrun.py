@@ -490,6 +490,9 @@ def run_case(arch: str, shape_name: str, mesh: str = "local",
     result = {
         "arch": arch, "shape": shape_name, "opts": sorted(opts),
         "mesh": mesh, "chips": m.size, "layers": cfg.num_layers,
+        # DTensor chooses a placed case's collectives, and its choices
+        # differ between versions
+        "torch": torch.__version__,
         "trace_s": time.perf_counter() - t0,
         "params": cfg.param_count(),
         "param_elements": case.param_elements,
@@ -526,7 +529,8 @@ def format_case(r: Dict) -> str:
             f"{r['memory_t'] * 1e3:.2f} ms, collective "
             f"{r['collective_t'] * 1e3:.2f} ms, {r['bottleneck']}-bound, "
             f"useful {'-' if useful is None else f'{useful:.3f}'}, traced "
-            f"in {r['trace_s']:.1f} s")
+            f"in {r['trace_s']:.1f} s"
+            + (f", torch {r['torch']}" if r["chips"] > 1 else ""))
 
 
 def main(argv=None):

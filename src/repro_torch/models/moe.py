@@ -10,7 +10,9 @@ weights instead (the reference's default) or, with
 ``flags.MOE_DECODE_DISPATCH`` and at least as many pairs as experts,
 runs the dispatch too.  The expert products are plain large matrix
 products, which the reference also leaves outside any Pallas kernel, so
-they run as ``torch.bmm`` / ``einsum`` here.
+they run as ``torch.bmm`` / ``einsum`` here.  Placed, each device
+dispatches and combines only its own tokens' pairs, and rows reach the
+devices of their experts by sums over the mesh (``_split_dispatch``).
 
 ``DROPPED`` counts the (token, expert) pairs the dispatch has dropped at
 capacity since it was last set to 0 (not on the meta device, which
@@ -23,9 +25,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (gather, is_placed, replicated_like,
+from repro_torch.dist.sharding import (constraint, from_pieces, is_placed,
+                                       replicated_like, row_axes, row_pieces,
                                        shard)
 from repro_torch.models import flags
 from repro_torch.models.layers import (MLP, apply_mlp, dense_init_,
@@ -86,7 +92,6 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
     and the step holds at least as many pairs as experts.  Every shape
     follows from the config and x's, so the dispatch also runs on the
     meta device (the dry run)."""
-    global DROPPED
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.moe_top_k
     T = B * S
@@ -98,52 +103,161 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, decode: bool = False):
             y = y + apply_mlp(params.shared, xt, cfg)
         return y.reshape(B, S, D), 0.0
 
-    # load-balance aux loss (Switch/DeepSeek style).  Placed, the pairs'
-    # bookkeeping and the dispatch and combine below run on plain tensors
-    # that every device holds whole and alike (``gather``: the expert ids,
-    # the token rows, the experts' outputs and the gates gathered), so
-    # they need no DTensor partitioning of their scatters (torch 2.11
-    # has none for ``index_add_``); each device's experts take their own
-    # rows of the dispatch buffer.
-    e_flat = gather(eidx).reshape(-1)                            # (T*K,)
-    counts = torch.zeros(E, dtype=e_flat.dtype, device=e_flat.device)
-    counts.index_add_(0, e_flat, torch.ones_like(e_flat))
-    f_e = replicated_like(probs, counts.float() / (T * K))
-    aux = E * torch.sum(f_e * probs.mean(0)) * cfg.router_aux_coef
-
     # capacity-bounded dispatch: rank within the expert's group
     C = max(1, int(math.ceil(T * K / E * cfg.capacity_factor)))
+    dispatch = _split_dispatch if is_placed(xt) else _dispatch
+    y, aux = dispatch(params, xt, probs, gates, eidx, C, cfg)
+    if "shared" in params._modules:
+        y = y + apply_mlp(params.shared, xt, cfg)
+    return y.reshape(B, S, D), aux
+
+
+def expert_counts(e_flat, E: int):
+    """(E,) pairs routed to each expert."""
+    counts = torch.zeros(E, dtype=e_flat.dtype, device=e_flat.device)
+    return counts.index_add_(0, e_flat, torch.ones_like(e_flat))
+
+
+def group_ranks(e_flat, counts):
+    """Each pair's rank among the pairs of its expert, in e_flat's order
+    (one stable argsort)."""
     order = torch.argsort(e_flat, stable=True)
     group_start = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(e_flat)
-    pos[order] = (torch.arange(T * K, device=e_flat.device)
+    pos[order] = (torch.arange(e_flat.numel(), device=e_flat.device)
                   - group_start[e_flat[order]])
+    return pos
+
+
+def piece_ranks(e_piece, every, r: int):
+    """The global ranks (``group_ranks`` of every piece's pairs laid end
+    to end) of the pairs of piece ``r`` of contiguous pieces, from each
+    piece's counts alone: ``every`` (pieces, E), ``every[r]`` its own.
+    A pair's rank is its expert's pairs on the earlier pieces plus its
+    rank within its own piece."""
+    return group_ranks(e_piece, every[r]) + every[:r].sum(0)[e_piece]
+
+
+def _aux_loss(probs, counts, pairs: int, cfg: ModelConfig):
+    """Load-balance aux loss (Switch/DeepSeek style); ``counts``: every
+    expert's pairs over the whole step."""
+    f_e = replicated_like(probs, counts.float() / pairs)
+    return cfg.num_experts * torch.sum(f_e * probs.mean(0)) \
+        * cfg.router_aux_coef
+
+
+def _experts(params: MoE, eb, cfg: ModelConfig):
+    """(E, C, D) dispatched rows -> the experts' outputs, placed by the
+    reference's constraints.  The reference names the rows "capacity",
+    which no rule maps; GSPMD then splits each expert's rows over the
+    axis the expert weights are split on besides "expert" (the train
+    rules' FSDP "embed"), so the rows go there (``CAPACITY``)."""
+    eb = shard(eb, "expert", CAPACITY, "embed_act")
+    return shard(_expert_products(params, eb, cfg), "expert", CAPACITY,
+                 "embed_act")
+
+
+def _combine(rows, keep, gates, K: int):
+    """Each pair's output row weighted by its gate (0 where dropped),
+    summed over the token's K pairs in order."""
+    rows = torch.where(keep[:, None], rows, 0)
+    rows = rows * gates.reshape(-1, 1).to(rows.dtype)
+    return rows.view(-1, K, rows.shape[-1]).sum(1)
+
+
+def _dispatch(params: MoE, xt, probs, gates, eidx, C: int,
+              cfg: ModelConfig):
+    """The unplaced dispatch: every pair into an (E*C + 1, D) buffer."""
+    global DROPPED
+    T, D = xt.shape
+    E, K = cfg.num_experts, cfg.moe_top_k
+    e_flat = eidx.reshape(-1)                                    # (T*K,)
+    counts = expert_counts(e_flat, E)
+    aux = _aux_loss(probs, counts, T * K, cfg)
+    pos = group_ranks(e_flat, counts)
     keep = pos < C
     if not keep.is_meta:          # a meta tensor holds no values to count
         DROPPED += T * K - int(keep.sum())
     # kept pairs have distinct rows; dropped ones all land on the dump
     # row E*C, which no expert reads (a copy, no accumulation)
     dest = torch.where(keep, e_flat * C + pos, E * C)
-    rows_in = gather(xt)
-    buf = rows_in.new_zeros((E * C + 1, D))
-    buf[dest] = rows_in.repeat_interleave(K, dim=0)
-    # the reference's constraints name the rows "capacity", which no rule
-    # maps; GSPMD then splits each expert's rows over the axis the expert
-    # weights are split on besides "expert" (the train rules' FSDP
-    # "embed"), so the rows go there (``CAPACITY``)
-    eb = shard(replicated_like(xt, buf[:E * C].view(E, C, D)), "expert",
-               CAPACITY, "embed_act")
-    eo = shard(_expert_products(params, eb, cfg), "expert", CAPACITY,
-               "embed_act")
+    buf = xt.new_zeros((E * C + 1, D))
+    buf[dest] = xt.repeat_interleave(K, dim=0)
+    eo = _experts(params, buf[:E * C].view(E, C, D), cfg)
+    rows = eo.reshape(E * C, D)[torch.where(keep, dest, 0)]
+    return _combine(rows, keep, gates, K), aux
 
-    # combine: each kept pair's row weighted by its gate, summed over K
-    rows = gather(eo).reshape(E * C, D)[torch.where(keep, dest, 0)]
-    rows = torch.where(keep[:, None], rows, 0)
-    rows = rows * gather(gates).reshape(-1, 1).to(rows.dtype)
-    y = replicated_like(xt, rows.view(T, K, D).sum(1))
-    if "shared" in params._modules:
-        y = y + apply_mlp(params.shared, xt, cfg)
-    return y.reshape(B, S, D), aux
+
+def _split_dispatch(params: MoE, xt, probs, gates, eidx, C: int,
+                    cfg: ModelConfig):
+    """The placed dispatch, split as GSPMD splits the reference's scatter.
+
+    Each device ranks, dispatches and combines its own tokens' pairs
+    (its rows of xt) on plain local tensors: a pair's global rank is the
+    count of its expert's pairs on the earlier pieces of the token split
+    (each piece's E counts all-gathered) plus its stable rank in its own
+    piece, which is the reference's global stable argsort, pair for
+    pair.  A device writes its kept pairs of its own experts (the split
+    of the experts' axis) into a zero buffer of its experts' E_l*C rows,
+    and the buffer is summed over the token axes into the placement the
+    expert products take (a reduce-scatter, or an all-reduce where the
+    rows are not split there): each (expert, slot) has one writer, so
+    the sum is a copy.  Back, the outputs of its experts are gathered
+    over the capacity axes, each device looks up its own pairs' rows and
+    the rows are summed over the expert axes (an all-reduce; again one
+    writer a row), so each token's K rows reach its device whole and are
+    weighted and summed in the unplaced order.  No split size depends on
+    values.  Raises where the experts are split over an axis that also
+    splits the tokens (that takes an exchange of rows between them)."""
+    global DROPPED
+    T, D = xt.shape
+    E, K = cfg.num_experts, cfg.moe_top_k
+    mesh = xt.device_mesh
+    tok = row_axes(xt, "moe dispatch")
+    want = constraint("expert", CAPACITY, "embed_act")
+    if any(want[i] == Shard(0) for i in tok):
+        raise ValueError(f"moe dispatch: the experts' placement {want} "
+                         f"splits them over an axis that splits the "
+                         f"tokens {tuple(xt.placements)}")
+    experts = [Shard(0) if p == Shard(0) else Replicate() for p in want]
+    split = [i for i, p in enumerate(experts) if p == Shard(0)]
+
+    def pieces(term):
+        # over each mesh axis: the tokens' split, else the experts'
+        # split with ``term`` over it, else replicated
+        return [Shard(0) if i in tok else term if i in split
+                else Replicate() for i in range(mesh.ndim)]
+
+    e_loc = eidx.redistribute(mesh, xt.placements).to_local().reshape(-1)
+    g_loc = gates.redistribute(mesh, xt.placements).to_local()
+    every, r = row_pieces(expert_counts(e_loc, E), xt, "moe dispatch")
+    total = every.sum(0)
+    aux = _aux_loss(probs, total, T * K, cfg)
+    pos = piece_ranks(e_loc, every, r)
+    keep = pos < C
+    if not keep.is_meta:
+        DROPPED += int((total - C).clamp_min(0).sum())
+
+    # this device's experts: e0 .. e0 + El - 1
+    (El, _, _), (e0, _, _) = compute_local_shape_and_global_offset(
+        (E, C, D), mesh, experts)
+    mine = keep & (e_loc >= e0) & (e_loc < e0 + El)
+    slot = (e_loc - e0) * C + pos
+    x_loc = xt.to_local(grad_placements=pieces(Partial()))
+    buf = x_loc.new_zeros((El * C + 1, D))
+    buf[torch.where(mine, slot, El * C)] = x_loc.repeat_interleave(K, 0)
+    term = [Partial() if i in tok else p for i, p in enumerate(experts)]
+    eb = from_pieces(buf[:El * C].view(El, C, D), mesh, term, (E, C, D))
+    eo = _experts(params, eb, cfg)
+
+    eo_loc = eo.redistribute(mesh, experts).to_local(grad_placements=term)
+    rows = eo_loc.reshape(El * C, D)[torch.where(mine, slot, 0)]
+    rows = torch.where(mine[:, None], rows, 0)
+    rows = from_pieces(rows.view(-1, K, D), mesh, pieces(Partial()),
+                       (T, K, D))
+    rows = rows.redistribute(mesh, xt.placements).to_local()
+    y = _combine(rows.view(-1, D), keep, g_loc, K)
+    return from_pieces(y, mesh, xt.placements, (T, D)), aux
 
 
 def _expert_products(params: MoE, eb, cfg: ModelConfig):

@@ -22,6 +22,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding
@@ -302,6 +303,66 @@ def ssm_forward(params: SSM, x, cfg: ModelConfig,
     return out, {"conv": conv_cache.to(model_dtype(cfg)), "ssm": final}
 
 
+def _decode_conv(window, xc_new, w, b):
+    """The conv over [the cached window, the new token], in fp32 as the
+    reference's decode runs it, and the window to keep.  Local over the
+    batch and the channels."""
+    window = torch.cat([window, xc_new.to(window.dtype)], dim=1)  # (B,W,C)
+    out = torch.einsum("bwc,wc->bc", window.float(), w.float())
+    return _silu(out + b.float()), window[:, 1:]
+
+
+def _placed_decode_inputs(params: SSM, x, cfg: ModelConfig, cache: Dict):
+    """Placed decode's (z, dt's logits, x by heads, B, C, the conv window
+    to keep).  in_proj's product is split over ``ssm_inner`` in chunks
+    that cut across its blocks [z, x|B|C, dt]; one all-to-all re-splits
+    it block by block (z and the conv's channels as the conv cache and
+    weights are split, dt as the heads), GSPMD's collective-permute,
+    where slicing the product would gather it whole.  The conv runs on
+    the shards of its channels; its output is re-split once more: x by
+    heads, B and C whole on every device."""
+    di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
+                    cfg.ssm_headdim)
+    B = x.shape[0]
+    # (B, 1, 2di+2N+H), a partial sum reduced first (the residual stream
+    # a placed decode hands on may hold one)
+    proj = shard(x @ params.in_proj, "batch", None, "ssm_inner")
+    mesh, pl = proj.device_mesh, tuple(proj.placements)
+    a = pl.index(Shard(2))          # the mesh axis splitting the columns
+    parts, me = mesh.size(a), mesh.get_coordinate()[a]
+    blocks = ((0, di), (di, 2 * di + 2 * N), (2 * di + 2 * N, proj.shape[2]))
+
+    def by_block(j):
+        return [tuple(lo + c for c in sharding.chunk(hi - lo, parts, j))
+                for lo, hi in blocks]
+
+    pieces = sharding.take(proj, 2, by_block, "ssm decode").split(
+        [hi - lo for lo, hi in by_block(me)], 2)
+    z, xc_new, dtl = (sharding.from_pieces(t, mesh, pl, (B, 1, hi - lo))
+                      for t, (lo, hi) in zip(pieces, blocks))
+
+    conv_out, window = sharding.on_shards(
+        "decode_conv", _decode_conv, cache["conv"],
+        (cache["conv"], xc_new, params.conv_w, params.conv_b),
+        ((0, 2), (0, 2), (None, 1), (None, 0)), ((0, 1), (0, 2)),
+        strict=True)
+
+    def heads_and_bc(j):
+        lo, hi = sharding.chunk(H, parts, j)
+        return [(lo * Pd, hi * Pd), (di, di + 2 * N)]
+
+    lo, hi = sharding.chunk(H, parts, me)
+    xs, bc = sharding.take(conv_out, 1, heads_and_bc, "ssm decode").split(
+        [(hi - lo) * Pd, 2 * N], 1)
+    xs = sharding.from_pieces(
+        xs.view(xs.shape[0], hi - lo, Pd), mesh,
+        [Shard(1) if i == a else p for i, p in enumerate(pl)], (B, H, Pd))
+    bc = sharding.from_pieces(
+        bc, mesh, [Replicate() if i == a else p for i, p in enumerate(pl)],
+        (B, 2 * N))
+    return z, dtl, xs, bc[:, :N], bc[:, N:], window
+
+
 def ssm_decode(params: SSM, x, cfg: ModelConfig, cache: Dict):
     """x: (B, 1, D).  Writes the shifted conv window and the new state
     into ``cache`` in place (the reference builds a new cache) and
@@ -312,24 +373,20 @@ def ssm_decode(params: SSM, x, cfg: ModelConfig, cache: Dict):
     Bsz = x.shape[0]
     di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
                     cfg.ssm_headdim)
-    # placed, the one token's projection and conv output are gathered
-    # once each: every slice of a split row below would gather it again
-    zxbcdt = shard(x @ params.in_proj, "batch", None, None)   # (B, 1, .)
-    z, xc_new, dtl = _split_proj(cfg, zxbcdt)
-    window = torch.cat([cache["conv"], xc_new.to(cache["conv"].dtype)],
-                       dim=1)                                # (B, W, C)
-    conv_out = torch.einsum("bwc,wc->bc", window.float(),
-                            params.conv_w.float())
-    conv_out = shard(_silu(conv_out + params.conv_b.float()), "batch", None)
-    xs = conv_out[:, :di]
-    Bm = conv_out[:, di:di + N]
-    Cm = conv_out[:, di + N:]
+    if is_placed(params.in_proj):
+        z, dtl, xs, Bm, Cm, window = _placed_decode_inputs(params, x, cfg,
+                                                           cache)
+    else:
+        z, xc_new, dtl = _split_proj(cfg, x @ params.in_proj)
+        conv_out, window = _decode_conv(cache["conv"], xc_new,
+                                        params.conv_w, params.conv_b)
+        xs = conv_out[:, :di].reshape(Bsz, H, Pd)
+        Bm = conv_out[:, di:di + N]
+        Cm = conv_out[:, di + N:]
     dt = F.softplus(dtl[:, 0].float() + params.dt_bias)
     A = -torch.exp(params.A_log)
-    new_state, y = ssd_step(cache["ssm"], xs.reshape(Bsz, H, Pd), dt, A,
-                            Bm, Cm)
-    out = _gated_out(cfg, params, y.reshape(Bsz, 1, H, Pd), z,
-                     xs[:, None, :])
-    cache["conv"].copy_(window[:, 1:])
+    new_state, y = ssd_step(cache["ssm"], xs, dt, A, Bm, Cm)
+    out = _gated_out(cfg, params, y.reshape(Bsz, 1, H, Pd), z, xs)
+    cache["conv"].copy_(window)
     cache["ssm"].copy_(new_state)
     return out, cache

@@ -16,10 +16,14 @@ inherits process-group or XLA device state:
     B 8 x S 64: FLOPs within ``FLOPS_FRAC`` of XLA's (of its dot
     instructions' in the ``DOT_HELD`` cases), total collective bytes
     within ``COLLECTIVE_BAND`` of the reference's ``collective_bytes``;
+    and the largest local tensor inside a placed MoE layer against the
+    unplaced step's (``MOE_SPLIT_FRAC``);
 (c) real collectives: 4 gloo processes on a (2, 2) mesh, the placed
     forward, train step and decode step of each family's reduced fp32
     config against the same step in one process, and the trained placed
-    model through a checkpoint;
+    model through a checkpoint; the MoE families again with the decode
+    step on the dispatch and a capacity that drops pairs, the pairs
+    dropped equal to one process's;
 (d) the dry run on 16x16 for the 10 architectures at ``train_4k``, full
     width and 2 layers: every term a number, and the argument bytes of
     DTensor's local shards equal to ``argument_bytes``.
@@ -43,6 +47,7 @@ FAMILIES = ["starcoder2-7b", "mamba2-370m", "zamba2-7b",
             "llama4-scout-17b-a16e", "deepseek-v3-671b", "whisper-tiny",
             "pixtral-12b"]
 MODES = ("train", "prefill", "decode")
+MOE_FAMILIES = ["llama4-scout-17b-a16e", "deepseek-v3-671b"]
 #: as tests/test_torch_dryrun.py: matrix products against XLA's whole count
 FLOPS_FRAC = (0.85, 1.0)
 #: the port's collective bytes a device over the reference's
@@ -68,6 +73,11 @@ LEAF_TOL = 1e-4
 #: rounding noise (a zero-initialised key bias under RoPE) may move by a
 #: fraction of lr whatever the gradient's tolerance
 UPDATE_FRAC_OF_LR = 0.2
+#: the largest local tensor any op inside a placed MoE layer produces, at
+#: most this share of the unplaced step's: the split dispatch holds its
+#: own tokens' rows and its experts' rows of the buffer, never all of
+#: either (the (2, 4) mesh splits the tokens in 2 and the experts in 4)
+MOE_SPLIT_FRAC = 0.5
 TIMEOUT_S = 600
 
 
@@ -140,6 +150,16 @@ def test_per_device_counts_match_xla(runs, arch, mode):
         (coll, got, want)
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("arch", MOE_FAMILIES)
+def test_placed_moe_dispatch_holds_no_whole_buffer(runs, arch, mode):
+    """Inside the MoE layers of a step on the fake (2, 4) mesh (the decode
+    step on the dispatch), no local tensor comes near the unplaced
+    step's (E*C + 1, D) buffer or its T*K rows."""
+    placed, whole = _get(runs, "fake")["moe_largest"][f"{arch}/{mode}"]
+    assert 0 < placed <= MOE_SPLIT_FRAC * whole, (placed, whole)
+
+
 # --------------------------------------------------------------------------
 # (c) real collectives against one process
 # --------------------------------------------------------------------------
@@ -175,6 +195,38 @@ def test_gloo_decode_step_matches_one_process(runs, arch):
     assert r["cache_max_abs"] <= LOGIT_TOL, r
 
 
+@pytest.mark.parametrize("arch", MOE_FAMILIES)
+def test_gloo_moe_dispatch_matches_one_process(runs, arch):
+    """The split dispatch where it drops pairs: the forward, train step
+    and a decode step on the dispatch (``MOE_DECODE_DISPATCH``) at a
+    capacity that drops pairs, against one process."""
+    r = _get(runs, "gloo")[f"{arch}/dispatch"]
+    assert r["forward_max_abs"] <= LOGIT_TOL, r
+    assert r["loss_abs"] <= LOSS_TOL, r
+    assert r["grad_rel_l2"] <= LEAF_TOL, r
+    assert r["params_rel_l2"] <= LEAF_TOL, r
+    assert r["param_max_abs"] <= UPDATE_FRAC_OF_LR * r["lr"], r
+    assert r["decode_max_abs"] <= LOGIT_TOL, r
+    assert r["cache_max_abs"] <= LOGIT_TOL, r
+
+
+@pytest.mark.parametrize("run", ["config", "dispatch"])
+@pytest.mark.parametrize("arch", MOE_FAMILIES)
+def test_gloo_moe_drops_the_pairs_one_process_drops(runs, arch, run):
+    """``moe.DROPPED`` of each placed step equals one process's.  At the
+    dropping capacity the forward and the train step drop pairs, and
+    the unplaced routing has an expert whose pairs come from both data
+    ranks and are dropped: a pair's rank there is global, not its
+    rank's."""
+    r = _get(runs, "gloo")[arch if run == "config" else f"{arch}/dispatch"]
+    for step, (got, want) in r["dropped"].items():
+        assert got == want, (step, r["dropped"])
+    if run == "dispatch":
+        assert r["dropped"]["forward"][1] > 0, r["dropped"]
+        assert r["dropped"]["train"][1] > 0, r["dropped"]
+        assert r["spanning_drops"] > 0, r
+
+
 # --------------------------------------------------------------------------
 # (d) the dry run on 16x16
 # --------------------------------------------------------------------------
@@ -196,6 +248,7 @@ def test_dry_run_on_16x16_gives_every_term(runs, arch):
                                      "reduce-scatter", "all-to-all",
                                      "collective-permute"}
     assert r["local_argument_bytes"] == r["argument_bytes_per_device"]
+    assert r["torch"] == torch.__version__
 
 
 # --------------------------------------------------------------------------

@@ -15,12 +15,18 @@ OUT.json:
   placed forward (serve rules), one placed train step (train rules) and
   one placed decode step against a prefilled cache (serve rules), each
   against the same step unplaced in the same process, from the same
-  seeded weights and inputs.  Rank 0 writes the differences.
+  seeded weights and inputs, and the pairs each step drops at capacity
+  (``moe.DROPPED``); the MoE families again with the decode step on the
+  dispatch (``MOE_DECODE_DISPATCH``) and a capacity that drops pairs
+  (``DROPPING_CAPACITY``), with the experts whose pairs come from both
+  data ranks and are dropped.  Rank 0 writes the differences.
 - ``fake``: fake groups of 256, 512 and 8 ranks: every parameter of the
   10 architectures at full size on meta, placed by the train rules on
   16x16 and 2x16x16, DTensor's local shape on rank 0 and on the last
-  rank beside ``dist.sharding.local_shape``; and the port's per-device
-  counts of the 7 families' reduced fp32 steps on a (2, 4) mesh.
+  rank beside ``dist.sharding.local_shape``; the port's per-device
+  counts of the 7 families' reduced fp32 steps on a (2, 4) mesh; and
+  the largest local tensor inside the MoE layers of the two MoE
+  families' steps there and in one process.
 - ``dryrun``: ``launch.dryrun.run_case`` on 16x16 (a fake group of
   256) for the 10 architectures at ``train_4k``, full width, 2 layers.
 - ``xla``: the reference's ``build_case`` for the same 21 steps,
@@ -44,6 +50,9 @@ import sys
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
@@ -53,7 +62,9 @@ from repro_torch.dist import sharding as sh  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import (fake_group, make_mesh,  # noqa: E402
                                      make_production_mesh)
+from repro_torch.models import flags  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.train.optimizer import AdamW  # noqa: E402
 
@@ -62,6 +73,10 @@ FAMILIES = ["starcoder2-7b", "mamba2-370m", "zamba2-7b",
             "llama4-scout-17b-a16e", "deepseek-v3-671b", "whisper-tiny",
             "pixtral-12b"]
 MODES = ("train", "prefill", "decode")
+MOE_FAMILIES = ["llama4-scout-17b-a16e", "deepseek-v3-671b"]
+#: E*C = T*K / 2: at least half the pairs of a prefill or train step
+#: find no slot, whatever the routing
+DROPPING_CAPACITY = 0.5
 GLOO_WORLD = 4
 GLOO_MESH = (2, 2)
 BATCH, SEQ, DECODE_MAX = 4, 16, 24
@@ -87,9 +102,52 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def _family(arch: str, mesh, path: str) -> dict:
+def _dropped(fn):
+    """(fn(), the pairs ``moe.DROPPED`` counted while it ran)."""
+    moe_mod.DROPPED = 0
+    res = fn()
+    return res, moe_mod.DROPPED
+
+
+def _routing(fn):
+    """(fn(), each dispatch's (T, K) expert ids), ``moe._route`` recorded."""
+    seen, route = [], moe_mod._route
+
+    def recorded(*args):
+        probs, gates, eidx = route(*args)
+        seen.append(sh.gather(eidx).detach().clone())
+        return probs, gates, eidx
+
+    moe_mod._route = recorded
+    try:
+        return fn(), seen
+    finally:
+        moe_mod._route = route
+
+
+def _spanning_drops(eidx, cfg, pieces: int) -> int:
+    """The experts, over every dispatch, whose pairs come from more than
+    one of ``pieces`` contiguous pieces of the tokens (the data ranks'
+    rows) and that drop pairs at capacity: where a pair's rank is
+    global, not its piece's."""
+    n = 0
+    for e in eidx:
+        T, K = e.shape
+        C = max(1, math.ceil(T * K / cfg.num_experts * cfg.capacity_factor))
+        per = torch.stack([moe_mod.expert_counts(p.reshape(-1),
+                                                 cfg.num_experts)
+                           for p in e.chunk(pieces)])
+        n += int(((per > 0).sum(0) > 1).logical_and(per.sum(0) > C).sum())
+    return n
+
+
+def _family(arch: str, mesh, path: str, capacity_factor=None) -> dict:
+    """``arch``'s placed steps against one process; ``capacity_factor``
+    replaces the config's (the MoE dispatch runs)."""
     cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
                               dtype="float32")
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
 
     def fresh():            # the same seeded weights every call
         return model_mod.init(cfg, torch.Generator().manual_seed(0),
@@ -104,15 +162,21 @@ def _family(arch: str, mesh, path: str) -> dict:
     trules = dryrun.rules_for(cfg, train, GLOO_MESH[1])
     out = {}
 
-    # forward
+    # forward; each step's pairs dropped at capacity, placed and not
+    dropped = out["dropped"] = {}
     with torch.no_grad():
-        want, _, _ = model_mod.forward(cfg, lm, batch)
+        ((want, _, _), drop_want), routes = _routing(lambda: _dropped(
+            lambda: model_mod.forward(cfg, lm, batch)))
         placed = sh.distribute(fresh(), mesh, serve)
         pbatch = sh.place_tree(batch, model_mod.batch_axes(batch), mesh,
                                serve)
         with sh.axis_rules(mesh, serve):
-            got, _, _ = model_mod.forward(cfg, placed, pbatch)
+            (got, _, _), drop_got = _dropped(
+                lambda: model_mod.forward(cfg, placed, pbatch))
     out["forward_max_abs"] = _max_diff(got, want)
+    dropped["forward"] = [drop_got, drop_want]
+    if cfg.num_experts:
+        out["spanning_drops"] = _spanning_drops(routes, cfg, GLOO_MESH[0])
 
     # one train step
     opt = AdamW()
@@ -130,10 +194,13 @@ def _family(arch: str, mesh, path: str) -> dict:
             opt.step_(named, grads, state)
         return float(sh.gather(loss.detach())), kept, named
 
-    loss_ref, g_ref, p_ref = train_step(fresh(), batch)
+    (loss_ref, g_ref, p_ref), drop_want = _dropped(
+        lambda: train_step(fresh(), batch))
     placed = sh.distribute(fresh(), mesh, trules)
     tbatch = sh.place_tree(batch, model_mod.batch_axes(batch), mesh, trules)
-    loss_got, g_got, p_got = train_step(placed, tbatch, mesh, trules)
+    (loss_got, g_got, p_got), drop_got = _dropped(
+        lambda: train_step(placed, tbatch, mesh, trules))
+    dropped["train"] = [drop_got, drop_want]
     out["loss_abs"] = abs(loss_got - loss_ref)
     out["grad_rel_l2"] = max(_rel_l2(g_got[n], g_ref[n]) for n in g_ref)
     # the whole model's updated parameters at once: AdamW's first step
@@ -149,7 +216,8 @@ def _family(arch: str, mesh, path: str) -> dict:
 
     # the trained placed model through a checkpoint: gathered whole to
     # save (rank 0 writes), placed again as it restores
-    ckpt = os.path.join(os.path.dirname(path), f"{arch}.npz")
+    ckpt = os.path.join(os.path.dirname(path),
+                        f"{arch}-{cfg.capacity_factor}.npz")
     ckpt_mod.save(ckpt, placed, step=1)
     dist.barrier()
     back, step = ckpt_mod.restore(ckpt, sh.distribute(fresh(), mesh, trules))
@@ -174,14 +242,17 @@ def _family(arch: str, mesh, path: str) -> dict:
                             generator=torch.Generator().manual_seed(2),
                             dtype=torch.int32)
         cur = torch.full((BATCH,), SEQ, dtype=torch.int32)
-        want, cache = model_mod.decode_step(cfg, lm, tok, cache, cur)
+        (want, cache), drop_want = _dropped(
+            lambda: model_mod.decode_step(cfg, lm, tok, cache, cur))
         placed = sh.distribute(fresh(), mesh, serve)
         ptok = sh.place(tok, mesh, serve, ("batch", None))
         pcur = sh.place(cur, mesh, serve, ("batch",))
         with sh.axis_rules(mesh, serve):
-            got, pcache = model_mod.decode_step(cfg, placed, ptok, pcache,
-                                                pcur)
+            (got, pcache), drop_got = _dropped(
+                lambda: model_mod.decode_step(cfg, placed, ptok, pcache,
+                                              pcur))
     out["decode_max_abs"] = _max_diff(got, want)
+    dropped["decode"] = [drop_got, drop_want]
     leaves = zip(torch.utils._pytree.tree_leaves(pcache),
                  torch.utils._pytree.tree_leaves(cache))
     out["cache_max_abs"] = max(_max_diff(a, b) for a, b in leaves)
@@ -195,6 +266,12 @@ def _gloo_rank(rank: int, port: int, path: str) -> None:
     try:
         mesh = make_mesh(GLOO_MESH, ("data", "model"), device_type="cpu")
         res = {arch: _family(arch, mesh, path) for arch in FAMILIES}
+        # the MoE families again with the decode step on the dispatch and
+        # a capacity that drops pairs whatever the routing
+        flags.MOE_DECODE_DISPATCH = True
+        for arch in MOE_FAMILIES:
+            res[f"{arch}/dispatch"] = _family(arch, mesh, path,
+                                              DROPPING_CAPACITY)
         if rank == 0:
             with open(path, "w") as f:
                 json.dump(res, f)
@@ -255,10 +332,73 @@ def _counts() -> dict:
     return out
 
 
+class _Largest(TorchDispatchMode):
+    """The bytes of the largest tensor a local op produces (views, which
+    hold no storage of their own, and DTensor's propagation on fake
+    tensors left out); an op on DTensors is left to DTensor, whose local
+    ops and collectives then reach this mode, as in ``dryrun.StepCounter``."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        leaves = torch.utils._pytree.tree_leaves((args, kwargs))
+        if not func.is_view and not any(isinstance(t, FakeTensor)
+                                        for t in leaves):
+            for t in torch.utils._pytree.tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self.bytes = max(self.bytes,
+                                     t.numel() * t.element_size())
+        return out
+
+
+def _largest_in_moe(case) -> int:
+    """The largest local tensor any op inside ``moe.apply_moe`` produces
+    while ``case`` runs (its recomputation under remat included)."""
+    mode, apply = _Largest(), moe_mod.apply_moe
+
+    def recorded(*args, **kwargs):
+        with mode:
+            return apply(*args, **kwargs)
+
+    moe_mod.apply_moe = recorded
+    try:
+        dryrun.count(case.fn)
+    finally:
+        moe_mod.apply_moe = apply
+    return mode.bytes
+
+
+def _moe_largest() -> dict:
+    """{arch/mode: (placed, unplaced)}: the largest local tensor inside the
+    MoE layers of the MoE families' reduced fp32 steps at B 8 x S 64,
+    on a device of the fake (2, 4) mesh and in one process, the decode
+    step on the dispatch (``MOE_DECODE_DISPATCH``)."""
+    out = {}
+    with fake_group(COUNT_WORLD), dryrun.model_flags({"moe_dispatch"}):
+        mesh = make_mesh(COUNT_MESH, ("data", "model"))
+        for arch in MOE_FAMILIES:
+            cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
+                                      dtype="float32")
+            for mode in MODES:
+                shape = ShapeConfig(f"{mode}_small", COUNT_SEQ, COUNT_BATCH,
+                                    mode)
+                rules = dryrun.rules_for(cfg, shape, COUNT_MESH[1])
+                out[f"{arch}/{mode}"] = [
+                    _largest_in_moe(dryrun.build_case(cfg, shape, **where))
+                    for where in (dict(mesh=mesh, rules=rules), {})]
+    return out
+
+
 def fake(path: str) -> None:
     torch.set_num_threads(1)
     with open(path, "w") as f:
-        json.dump({"shards": _shards(), "counts": _counts()}, f)
+        json.dump({"shards": _shards(), "counts": _counts(),
+                   "moe_largest": _moe_largest()}, f)
 
 
 def dry(path: str) -> None:
