@@ -25,7 +25,8 @@ which must pass for the run to exit 0:
    tiles, S < 64 and one query row, and V at its own head dim: MLA's
    q/k 192 against V 128 (S = T = 1999, a ragged 333, fully masked
    rows), Gemma-7B's causal hd 256 (H = Hkv = 16, S = T = 2048) and
-   hd 160 at g 4 (S = T = 2048); the SSD state scan (K3) in fp32 at
+   hd 160 at g 4 (S = T = 2048), and K1 also at StableLM-12B's hd 160
+   (g 4) and Qwen2-72B's group of 8; the SSD state scan (K3) in fp32 at
    Zamba2-7B's and Mamba2-370M's prefill shapes, one chunk, 33 chunks
    from a random state, decays all 0 and all 1, strided states and
    Mamba2-370M's trained shape (b = 4).  The two backward kernels
@@ -50,15 +51,17 @@ which must pass for the run to exit 0:
    Llama-4 Scout (MoE, 16 experts top-1 and a shared one; 8 of 48
    layers), DeepSeek-V3 (MLA and MoE, 256 experts top-8 and a shared
    one; its 3 dense and 2 MoE layers of 61), Pixtral-12B (VLM: 4 zero
-   patch embeddings ahead of each prompt) and Whisper-tiny (audio:
-   1500 zero frames, encoder and decoder), all at their published
+   patch embeddings ahead of each prompt), Whisper-tiny (audio:
+   1500 zero frames, encoder and decoder), StableLM-12B (LayerNorm, hd
+   160, g 4), Gemma-7B (GeGLU, hd 256, tied embeddings) and Qwen2-72B
+   (QKV biases, theta 1e6, g 8; 8 of 80 layers), all at their published
    widths, in bf16, random weights from a seeded generator (expert
    stacks drawn expert by expert), each freed before the next, behind
    ``ServingEngine`` with DPA scheduling: 8 requests of 100-2000 prompt
-   tokens and 32 new tokens each (Mamba2-370M and Whisper-tiny 4 of
-   16).  Each run's launch counts must match its served work (K3 once
-   per SSM layer per prefill; K2 once per attention layer or group per
-   prefill, and for Whisper also once per encoder layer and
+   tokens and 32 new tokens each (Mamba2-370M, Whisper-tiny and the
+   last three 4 of 16).  Each run's launch counts must match its served
+   work (K3 once per SSM layer per prefill; K2 once per attention layer
+   or group per prefill, and for Whisper also once per encoder layer and
    cross-attention; K1 once per attention layer or group per decode
    step, for Whisper twice, for MLA never: its latent attention is
    plain), and the longest request's last decode logits are held to a
@@ -91,16 +94,19 @@ which must pass for the run to exit 0:
    against the same with ``kernels.ops`` patched to the plain versions
    on the card: the loss and every gradient leaf;
 6. placement: an NCCL process group of one rank and ``make_local_mesh()``
-   = (1, 1) with a ``DeviceMesh``.  The train phase's StarCoder2-7B case
-   takes one step with its parameters, AdamW's moments and its batch
-   placed by ``TRAIN_RULES`` (DTensors), against the same step unplaced
-   from the same weights and batch: the loss and every gradient leaf,
-   bit for bit or within ``PLACED_LOSS_TOL`` / ``PLACED_GRAD_TOL``
-   (printed which); K2's forward and backward launches by the profiler
-   must be equal, and every placed K2 call goes through ``local_map``;
-   both steps' ms.  DeepSeek-V3 (5 of 61 layers: MLA, MoE) and
-   Zamba2-7B (K3) run a prefill and ``PLACED_DECODE`` decode steps under
-   ``SERVE_RULES`` against the unplaced run: logits within
+   = (1, 1) with a ``DeviceMesh``.  The train phase's StarCoder2-7B
+   case and Mamba2-370M at B 2 x S 1024 (``PLACED_TRAIN``) each take one
+   step with their parameters, AdamW's moments and their batch placed by
+   ``TRAIN_RULES`` (DTensors; the SSM's in_proj re-split by
+   ``sharding.take``, forward and backward), against the same step
+   unplaced from the same weights and batch (Mamba2-370M in fp32): the
+   loss and every gradient leaf, bit for bit or within
+   ``PLACED_LOSS_TOL`` / ``PLACED_GRAD_TOL`` (fp32: the fp32 training
+   check's; printed which); K2's forward and backward launches by the
+   profiler must be equal, and every placed K2 and K3 call goes through
+   ``local_map``; both steps' ms.  DeepSeek-V3 (5 of 61 layers: MLA,
+   MoE) and Zamba2-7B (K3) run a prefill and ``PLACED_DECODE`` decode
+   steps under ``SERVE_RULES`` against the unplaced run: logits within
    ``PLACED_LOGIT_TOL`` (or bit for bit), the MoE pairs dropped at
    capacity (``moe.DROPPED``) equal, K1, K2 and K3 launches matching
    the work, each through ``local_map``;
@@ -166,8 +172,8 @@ which must pass for the run to exit 0:
    of a real ``VectorBatch`` with ``memory_allocated`` flat; each
    check's time is printed;
 11. examples: the four ``examples/torch_*.py`` (``EXAMPLES``), each in a
-    process of its own on the card with its counterpart's defaults: each
-    must exit 0, and prints its wall time.
+    process of its own on the card with its counterpart's defaults, all
+    started together: each must exit 0, and prints its wall time.
 
 The bucket step is also checked in phase 3 against its plain version bit
 for bit on seeded segments (``bucket_step.synthetic_case``): one replica
@@ -697,6 +703,10 @@ def check_kernels(dev):
             B=4, H=6, Hkv=6, T=4096, hd=64, cur=[4095, 1999, 777, 130])),
         ("whisper cross W=1500 every slot", dict(
             B=4, H=6, Hkv=6, T=1500, hd=64, cur=[1499] * 4)),
+        ("stablelm decode hd=160 g=4 B=4 W=4096", dict(
+            B=4, H=32, Hkv=8, T=4096, hd=160, cur=[4095, 1999, 777, 130])),
+        ("qwen2 decode g=8 B=4 W=4096", dict(
+            B=4, H=64, Hkv=8, T=4096, hd=128, cur=[4095, 1999, 777, 130])),
     ]
     errs = {"flash_attention": 0.0, "decode_attention": 0.0,
             "ssd_scan": 0.0, "arma_fit": 0.0, "bucket_step": 0.0,
@@ -913,8 +923,9 @@ def time_kernels(dev, errs):
     StarCoder2-7B's widths (the row) and, in ``other_shapes``, at
     Zamba2-7B's hd = 112, Llama-4 Scout's and Pixtral-12B's widths,
     DeepSeek-V3's MLA prefill (q/k 192, V 128), Whisper-tiny's encoder,
-    cross-attention and decode (K2 also at StableLM-12B's hd 160 and
-    Gemma-7B's hd 256, which no served model runs); K3 at Zamba2-7B's prefill of 2000
+    cross-attention and decode, StableLM-12B's hd 160, Gemma-7B's hd
+    256, Qwen2-72B's group of 8 (K2 also at the train example's hd 96);
+    K3 at Zamba2-7B's prefill of 2000
     tokens; the backward kernels at the trained shapes (``bwd_row``: also
     StableLM-12B's hd 160 and Gemma-7B's hd 256; K3's at Mamba2-370M's
     B = 4, S = 2048)."""
@@ -1043,6 +1054,10 @@ def time_kernels(dev, errs):
     flash_row("train example", 8, 8, 8, 128, 96)
     decode_row("whisper-tiny self", 4, 6, 6, 4096, 64, fill)
     decode_row("whisper-tiny cross", 4, 6, 6, 1500, 64, [1499] * 4)
+    decode_row("stablelm-12b", 4, 32, 8, 4096, 160, fill)
+    decode_row("gemma-7b", 4, 16, 16, 4096, 256, fill)
+    flash_row("qwen2-72b", 1, 64, 8, 2000, 128)
+    decode_row("qwen2-72b", 4, 64, 8, 4096, 128, fill)
 
     # K3 at Zamba2-7B's prefill of a 2000-token prompt: 8 chunks of 256
     b, c, h, p, n = 1, 8, 112, 64, 64
@@ -1121,15 +1136,22 @@ def time_kernels(dev, errs):
 SERVED = (("starcoder2-7b", 8, 32), ("zamba2-7b", 8, 32),
           ("mamba2-370m", 4, 16), ("llama4-scout-17b-a16e", 8, 32),
           ("deepseek-v3-671b", 8, 32), ("pixtral-12b", 8, 32),
-          ("whisper-tiny", 4, 16))
+          ("whisper-tiny", 4, 16), ("stablelm-12b", 4, 16),
+          ("gemma-7b", 4, 16), ("qwen2-72b", 4, 16))
 #: depth cuts of the served models that do not fit one card whole, in
 #: bf16: Llama-4 Scout 8 of 48 layers (about 2.21 B params a layer and
 #: 2.07 B of embeddings: 39.6 GB), DeepSeek-V3 5 of 61 (its 3 dense
 #: layers, 1.17 GB each, and 2 MoE layers of 256 routed experts and a
-#: shared one, 23.0 GB each; 3.7 GB of embeddings: 53 GB); every width
-#: is the published one
+#: shared one, 23.0 GB each; 3.7 GB of embeddings: 53 GB), Qwen2-72B 8
+#: of 80 (0.878 B params a layer: 0.151 B of attention with its QKV
+#: biases, 0.727 B of SwiGLU at 29,568; 7.02 B in layers and 2.49 B of
+#: untied embeddings at vocabulary 152,064: 9.51 B, 19.0 GB, and 38.1 GB
+#: in fp32, which fits); every width is the published one.  StableLM-12B
+#: (12.14 B: 24.3 GB, 48.6 GB in fp32) and Gemma-7B (8.54 B: 17.1 GB,
+#: 34.2 GB in fp32) are served whole
 SERVED_CUT = {"llama4-scout-17b-a16e": dict(num_layers=8),
-              "deepseek-v3-671b": dict(num_layers=5)}
+              "deepseek-v3-671b": dict(num_layers=5),
+              "qwen2-72b": dict(num_layers=8)}
 #: the depths of the fp32 check where the served depth does not fit in
 #: fp32: Llama-4 Scout 4 layers (43.6 GB), DeepSeek-V3 1 dense and 1 MoE
 #: layer (55 GB)
@@ -1647,17 +1669,29 @@ def check_fp32_train(dev, arch, cut, batch, seq) -> None:
 
 # -------------------------------------------------------------- placement
 #: [placement]: one rank's NCCL group, ``make_local_mesh()`` = (1, 1).
-#: Training: the train phase's StarCoder2-7B case, by ``TRAIN_RULES``;
+#: Training: ``PLACED_TRAIN``, by ``TRAIN_RULES``;
 #: serving: a prefill and ``PLACED_DECODE`` decode steps (the unplaced
 #: run's greedy tokens fed to both) of ``PLACED_BATCH`` prompts of
 #: ``PLACED_PROMPT`` tokens, by ``SERVE_RULES``, at ``SERVED_CUT`` depth
-PLACED_TRAIN = ("starcoder2-7b", dict(num_layers=16), 2, 2048, 1e-5)
+#: (arch, depth cut, batch, sequence length, peak lr, dtype) trained
+#: placed: the train phase's StarCoder2-7B case, and Mamba2-370M whole
+#: at B 2 x S 1024 (the SSM's in_proj re-split by ``sharding.take`` and
+#: its gradient) in fp32.  In bf16 the placed loss's log-sum-exp over the
+#: split vocabulary
+#: (``model.lm_loss``) rounds the logits' gradient apart from the
+#: unplaced ``logsumexp`` (the logits bit for bit, their gradient not),
+#: and Mamba2-370M's 48 layers carry that to 3.6e-2 on a dt_bias leaf
+#: (on an H100), past the bf16 tolerance, whatever take does; in fp32 the
+#: two steps are held to the fp32 training tolerances
+PLACED_TRAIN = (("starcoder2-7b", dict(num_layers=16), 2, 2048, 1e-5,
+                 "bfloat16"),
+                ("mamba2-370m", {}, 2, 1024, 3e-4, "float32"))
 PLACED_SERVED = ("deepseek-v3-671b", "zamba2-7b")
 PLACED_BATCH, PLACED_PROMPT, PLACED_DECODE = 2, 500, 4
 #: placed vs unplaced in bf16: the train phase's tolerances (loss rel
 #: 1e-5 would be fp32's; in bf16 the two paths' losses differ by the
 #: placed loss's own reduction of the split vocabulary) and the serve
-#: phase's for logits
+#: phase's for logits; in fp32 the fp32 training check's
 PLACED_LOSS_TOL = 1e-3
 PLACED_GRAD_TOL = 3e-2
 PLACED_LOGIT_TOL = SERVE_LOGIT_TOL
@@ -1711,24 +1745,28 @@ def k2_profiled_launches(fn):
     return fwd, bwd
 
 
-def placed_train(dev, mesh) -> dict:
-    """One training step of the train phase's StarCoder2-7B case from the
-    same seeded weights and batch, unplaced and with the parameters,
-    AdamW's moments and the batch placed by ``TRAIN_RULES`` on
-    ``mesh``: the loss and every gradient leaf (bit for bit, or within
-    ``PLACED_LOSS_TOL`` / ``PLACED_GRAD_TOL``: printed which), K2's
+def placed_train(dev, mesh, arch, cut, batch, seq, lr, dtype) -> dict:
+    """One training step of ``arch`` (a ``PLACED_TRAIN`` case) in
+    ``dtype`` from the same seeded weights and batch, unplaced and with
+    the parameters, AdamW's moments and the batch placed by
+    ``TRAIN_RULES`` on ``mesh``: the loss and every gradient leaf (bit
+    for bit, or within ``PLACED_LOSS_TOL`` / ``PLACED_GRAD_TOL`` in bf16,
+    ``FP32_TRAIN_LOSS_TOL`` / ``FP32_TRAIN_GRAD_TOL`` in fp32: printed
+    which), K2's
     forward and backward launches by the profiler (equal), the placed
-    route's ``local_map`` calls, and each path's step ms (the mean of
-    two steps after the compared one).  Returns the placed run's kernel
-    launch counts."""
+    route's ``local_map`` calls (every K2 and K3 forward through it),
+    and each path's step ms (the mean of two steps after the compared
+    one).  Returns the placed run's kernel launch counts."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.dist import sharding as sh
     from repro_torch.models import model
     from repro_torch.train import loop
     from repro_torch.train.optimizer import AdamW
 
-    arch, cut, batch, seq, lr = PLACED_TRAIN
-    cfg = served_config(arch, cut)
+    cfg = dataclasses.replace(served_config(arch, cut), dtype=dtype)
+    loss_tol, grad_tol = ((FP32_TRAIN_LOSS_TOL, FP32_TRAIN_GRAD_TOL)
+                          if dtype == "float32"
+                          else (PLACED_LOSS_TOL, PLACED_GRAD_TOL))
     inputs = loop.batch_to(next(SyntheticLM(
         cfg, DataConfig(batch_size=batch, seq_len=seq, seed=0))
         .batches(1)), dev)
@@ -1765,7 +1803,9 @@ def placed_train(dev, mesh) -> dict:
             step(rec)
             torch.cuda.synchronize()
         counts = model_counts()
-        fwd, bwd = k2_profiled_launches(step)
+        # K2's launches by the profiler, where the step launches K2
+        fwd, bwd = (k2_profiled_launches(step) if counts["flash_attention"]
+                    else (0, 0))
         times = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1787,31 +1827,34 @@ def placed_train(dev, mesh) -> dict:
     worst = max(rel, key=rel.get)
     exact = loss_rel == 0 and all(torch.equal(g, want["grads"][n])
                                   for n, g in got["grads"].items())
-    log(f"  train {cfg.name} ({depth_note(cfg)}), B={batch} S={seq}: loss "
-        f"{got['loss']:.6f} placed vs {want['loss']:.6f}, rel "
+    log(f"  train {cfg.name} ({depth_note(cfg)}, {dtype}), B={batch} "
+        f"S={seq}: loss {got['loss']:.6f} placed vs {want['loss']:.6f}, rel "
         f"{loss_rel:.2e}; {len(rel)} gradient leaves, worst rel L2 "
         f"{rel[worst]:.2e} ({worst}): "
         + ("bit for bit" if exact else
-           f"within the train tolerances (loss {PLACED_LOSS_TOL:g}, leaves "
-           f"{PLACED_GRAD_TOL:g})"))
-    log(f"    K2 forward/backward launches by the profiler, a step: "
-        f"placed {got['k2']}, unplaced {want['k2']}; the compared step's "
-        f"launches {got['counts']}, its local_map calls {got['local_map']}")
+           f"held to loss {loss_tol:g}, leaves {grad_tol:g}"))
+    k2 = (f"placed {got['k2']}, unplaced {want['k2']}"
+          if got["counts"]["flash_attention"] else "none, not profiled")
+    log(f"    K2 forward/backward launches by the profiler, a step: {k2}; "
+        f"the compared step's launches {got['counts']}, its local_map "
+        f"calls {got['local_map']}")
     log(f"    step {want['ms']:.1f} ms unplaced, {got['ms']:.1f} ms placed "
         f"({got['ms'] / want['ms']:.3f}x; mean of 2 steps each, after the "
-        f"compared and the profiled one)")
-    if not (exact or (loss_rel <= PLACED_LOSS_TOL
-                      and rel[worst] <= PLACED_GRAD_TOL)):
-        raise SystemExit("placement: the placed training step disagrees "
-                         "with the unplaced one")
-    if got["k2"] != want["k2"] or got["k2"][1] == 0:
-        raise SystemExit("placement: K2's launches differ between the "
-                         "placed and the unplaced step")
-    if got["counts"] != want["counts"] or \
-            got["local_map"].get("flash_attention", 0) != \
-            got["counts"]["flash_attention"]:
-        raise SystemExit("placement: a placed K2 call did not go through "
-                         "local_map")
+        f"compared one" + (" and the profiled one)"
+                           if got["counts"]["flash_attention"] else ")"))
+    if not (exact or (loss_rel <= loss_tol and rel[worst] <= grad_tol)):
+        raise SystemExit(f"placement {arch}: the placed training step "
+                         f"disagrees with the unplaced one")
+    if got["k2"] != want["k2"] or (got["counts"]["flash_attention"]
+                                   and got["k2"][1] == 0):
+        raise SystemExit(f"placement {arch}: K2's launches differ between "
+                         f"the placed and the unplaced step")
+    if got["counts"] != want["counts"] or any(
+            got["local_map"].get(op, 0) != got["counts"][kernel]
+            for op, kernel in (("flash_attention", "flash_attention"),
+                               ("ssd_chunked", "ssd_scan"))):
+        raise SystemExit(f"placement {arch}: a placed K2 or K3 call did not "
+                         f"go through local_map")
     return got["counts"], {"step_ms": [got["ms"], want["ms"]],
                            "bit_for_bit": exact}
 
@@ -1934,8 +1977,11 @@ def placement(dev):
             raise SystemExit(f"placement: make_local_mesh() gave {mesh}")
         log(f"  make_local_mesh(): {mesh.shape}, {mesh.device_mesh}")
         by_run, summary = {}, {}
-        by_run["placed train"], summary["train " + PLACED_TRAIN[0]] = \
-            placed_train(dev, mesh)
+        for case in PLACED_TRAIN:
+            by_run[f"placed train {case[0]}"], summary[f"train {case[0]}"] \
+                = placed_train(dev, mesh, *case)
+            gc.collect()
+            torch.cuda.empty_cache()
         for arch in PLACED_SERVED:
             by_run[f"placed serve {arch}"], summary[f"serve {arch}"] = \
                 placed_serve(dev, mesh, arch)
@@ -2728,31 +2774,49 @@ EXAMPLE_TIMEOUT_S = 300
 
 
 def examples() -> None:
-    """Each of ``EXAMPLES`` in a process of its own on the card, from the
-    checkout's ``examples/``: it must exit 0 within EXAMPLE_TIMEOUT_S.
-    Prints each one's wall time and the last lines of its output (the
-    whole output goes to ``build/examples/<name>.log``)."""
+    """``EXAMPLES``, each in a process of its own on the card, all four
+    started together (most of their time is host time, and the card's
+    host has cores to spare), from the checkout's ``examples/``: each
+    must exit 0 within EXAMPLE_TIMEOUT_S.  Prints each one's wall time
+    (from the common start) and the last lines of its output (the whole
+    output goes to ``build/examples/<name>.log``)."""
     import os
     import signal
 
     out_dir = ROOT / "build" / "examples"
     out_dir.mkdir(parents=True, exist_ok=True)
-    failed = []
-    for name in EXAMPLES:
-        logfile = out_dir / f"{Path(name).stem}.log"
-        t0 = time.perf_counter()
-        with open(logfile, "w") as fh:
-            proc = subprocess.Popen(
+    t0 = time.perf_counter()
+    running, done = {}, {}
+    try:
+        for name in EXAMPLES:
+            fh = open(out_dir / f"{Path(name).stem}.log", "w")
+            running[name] = (subprocess.Popen(
                 [sys.executable, str(ROOT / "examples" / name)],
                 stdout=fh, stderr=subprocess.STDOUT, cwd=str(ROOT),
-                start_new_session=True)
-            try:
-                rc = proc.wait(timeout=EXAMPLE_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, signal.SIGKILL)   # workers too
-                proc.wait()
-                rc = "timeout"
-        wall = time.perf_counter() - t0
+                start_new_session=True), fh)
+        while running:
+            for name, (proc, fh) in list(running.items()):
+                rc = proc.poll()
+                over = time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S
+                if rc is None and not over:
+                    continue
+                if rc is None:
+                    os.killpg(proc.pid, signal.SIGKILL)   # workers too
+                    proc.wait()
+                    rc = "timeout"
+                fh.close()
+                done[name] = (rc, time.perf_counter() - t0)
+                del running[name]
+            time.sleep(0.2)
+    finally:
+        for proc, fh in running.values():
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            fh.close()
+    failed = []
+    for name in EXAMPLES:
+        rc, wall = done[name]
+        logfile = out_dir / f"{Path(name).stem}.log"
         tail = [line for line in logfile.read_text().splitlines()
                 if line.strip()][-3:]
         log(f"  {name}: exit {rc} in {wall:.1f} s wall")
@@ -2890,7 +2954,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[examples] the {len(EXAMPLES)} examples of the port, each in a "
-        f"process of its own on the card")
+        f"process of its own on the card, started together")
     t0 = time.perf_counter()
     examples()
     log(f"[examples] done in {time.perf_counter() - t0:.1f} s wall")

@@ -407,6 +407,21 @@ def on_shards(name: str, fn, lead, args, dims, outs, strict: bool = False):
     return wrapped(*args)
 
 
+def reduced(x):
+    """``x`` with any partial sum it holds all-reduced (``Partial`` ->
+    ``Replicate``): the collective GSPMD emits where a product contracts
+    over a split dimension (attention's Q K^T over a split head_dim)
+    and a softmax or another op that is not linear follows.  Asked for
+    here rather than left to DTensor, whose choice depends on the torch
+    version (2.11 all-reduces, 2.13 reduce-scatters).  Anything else as
+    it is."""
+    if not isinstance(x, DTensor) or \
+            not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def gather(x):
     """A placed tensor as a plain tensor every rank holds whole (a
     collective where it is split; differentiable: its gradient returns
@@ -452,6 +467,51 @@ def chunk(n: int, parts: int, j: int) -> Tuple[int, int]:
     return min(j * size, n), min((j + 1) * size, n)
 
 
+def _exchange(rows: torch.Tensor, send, recv, n: int, add: bool,
+              group) -> torch.Tensor:
+    """One all-to-all over ``group``: the row ranges ``send[j]`` of
+    ``rows`` (dim 0) go to device j in that order, and what device i
+    sends lands in the row ranges ``recv[i]`` of an ``n``-row result,
+    written, or with ``add`` summed into zeros (ranges may repeat)."""
+    from torch.distributed._functional_collectives import \
+        all_to_all_single
+
+    data = all_to_all_single(
+        torch.cat([rows[:0]] + [rows[lo:hi] for ranges in send
+                                for lo, hi in ranges]),
+        [sum(hi - lo for lo, hi in ranges) for ranges in recv],
+        [sum(hi - lo for lo, hi in ranges) for ranges in send], group)
+    out = (rows.new_zeros if add else rows.new_empty)(
+        (n,) + tuple(rows.shape[1:]))
+    at = 0
+    for ranges in recv:
+        for lo, hi in ranges:
+            if add:
+                out[lo:hi] += data[at:at + hi - lo]
+            else:
+                out[lo:hi] = data[at:at + hi - lo]
+            at += hi - lo
+    return out
+
+
+class _Take(torch.autograd.Function):
+    """:func:`take`'s all-to-all on the local rows (dim 0), with its
+    gradient: the same all-to-all reversed, each piece's gradient sent
+    back to the device it came from and added at the piece's place (a
+    range two devices took gets the sum of both)."""
+
+    @staticmethod
+    def forward(ctx, rows, send, recv, n, group):
+        ctx.plan = (rows.shape[0], send, recv, group)
+        return _exchange(rows, send, recv, n, False, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        m, send, recv, group = ctx.plan
+        return _exchange(grad, recv, send, m, True, group), None, None, \
+            None, None
+
+
 def take(x: DTensor, dim: int, want, name: str) -> torch.Tensor:
     """The pieces of ``x``'s dimension ``dim`` that ``want(j)`` names for
     the device at coordinate j of the one mesh axis that splits ``dim``
@@ -460,11 +520,9 @@ def take(x: DTensor, dim: int, want, name: str) -> torch.Tensor:
     that axis, each device sending each other only the parts of its
     chunk they want: GSPMD's collective-permute of a dimension split
     anew, where a DTensor slice across chunk bounds gathers the whole
-    dimension.  The sizes follow from the shape and the mesh alone.  No
-    gradient (serving steps)."""
-    from torch.distributed._functional_collectives import \
-        all_to_all_single
-
+    dimension.  The sizes follow from the shape and the mesh alone.
+    Differentiable: the gradient returns by the reverse all-to-all
+    (:class:`_Take`) to ``x``'s placements."""
     mesh = x.device_mesh
     axes = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
     if len(axes) != 1 or any(p.is_partial() for p in x.placements):
@@ -481,24 +539,18 @@ def take(x: DTensor, dim: int, want, name: str) -> torch.Tensor:
         lo = min(max(lo, lo_i), hi_i)
         return lo, max(lo, min(hi, hi_i))
 
-    local = x.to_local().movedim(dim, 0)
     own = chunk(n, parts, me)[0]
-    send = [[clip(lo, hi, me) for lo, hi in want(j)] for j in range(parts)]
-    recv = [[clip(lo, hi, i) for lo, hi in want(me)] for i in range(parts)]
-    data = all_to_all_single(
-        torch.cat([local[:0]] + [local[lo - own:hi - own]
-                                 for pieces in send for lo, hi in pieces]),
-        [sum(hi - lo for lo, hi in p) for p in recv],
-        [sum(hi - lo for lo, hi in p) for p in send], (mesh, a))
-    # data holds each source's pieces in turn; lay them out range by range
-    at, rows = 0, {}
-    for i, pieces in enumerate(recv):
-        for k, (lo, hi) in enumerate(pieces):
-            rows[k, i] = (at, at + hi - lo)
-            at += hi - lo
-    return torch.cat([data[rows[k, i][0]:rows[k, i][1]]
-                      for k in range(len(want(me)))
-                      for i in range(parts)]).movedim(0, dim)
+    send = [[(lo - own, hi - own) for lo, hi in
+             (clip(lo, hi, me) for lo, hi in want(j))] for j in range(parts)]
+    # each wanted range in turn, its piece from each device in turn
+    recv, at = [[] for _ in range(parts)], 0
+    for lo, hi in want(me):
+        for i in range(parts):
+            lo_i, hi_i = clip(lo, hi, i)
+            recv[i].append((at, at + hi_i - lo_i))
+            at += hi_i - lo_i
+    local = x.to_local().movedim(dim, 0)
+    return _Take.apply(local, send, recv, at, (mesh, a)).movedim(0, dim)
 
 
 def constraint(*axes: Axis) -> Tuple[Placement, ...]:

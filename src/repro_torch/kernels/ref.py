@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.models import flags
 
 NEG_INF = -1e30
@@ -39,10 +40,12 @@ def _group(x, Hkv: int):
 
 
 def _masked_scores(q, k, mask, scale: float):
-    """(B, Hkv, g, S, T) fp32: the scaled scores, NEG_INF where masked."""
-    s = torch.einsum("bkgsd,bktd->bkgst", _group(q, k.shape[1]),
-                     k.float()) * scale
-    return s.masked_fill(~mask[:, None, None], NEG_INF)
+    """(B, Hkv, g, S, T) fp32: the scaled scores, NEG_INF where masked.
+    Placed with head_dim split, the partial products are all-reduced, as
+    GSPMD does (``sharding.reduced``)."""
+    s = sharding.reduced(torch.einsum("bkgsd,bktd->bkgst",
+                                      _group(q, k.shape[1]), k.float()))
+    return (s * scale).masked_fill(~mask[:, None, None], NEG_INF)
 
 
 def _stream(w, v):
@@ -109,8 +112,9 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, q_pos, k_pos, *,
     p = torch.where(none, 1.0 / T, p)
     dog = _group(do, Hkv)
     dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
-    dp = torch.einsum("bkgsd,bktd->bkgst", dog, v.float())
-    dsum = (dog * _group(o, Hkv)).sum(-1, keepdim=True)
+    dp = sharding.reduced(torch.einsum("bkgsd,bktd->bkgst", dog,
+                                       v.float()))
+    dsum = sharding.reduced((dog * _group(o, Hkv)).sum(-1, keepdim=True))
     ds = torch.where(mask & ~none, p * (dp - dsum), 0.0)
     dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.float()) * scale
     dk = torch.einsum("bkgst,bkgsd->bktd", ds, _group(q, Hkv)) * scale
@@ -125,7 +129,8 @@ def decode_attention_ref(q, k, v, k_pos, cur_pos, *, scale: float,
     Hkv = k.shape[1]
     g = H // Hkv
     qg = q.reshape(B, Hkv, g, hd).float()
-    s = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) * scale
+    s = sharding.reduced(torch.einsum("bkgd,bktd->bkgt", qg,
+                                      k.float())) * scale
     cur = cur_pos[:, None]
     mask = (k_pos >= 0) & (k_pos <= cur)
     if window:

@@ -188,31 +188,71 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
     return z, xc, dt
 
 
+def _by_block(blocks, parts: int):
+    """want(j) for :func:`sharding.take`: chunk j of each (lo, hi) block,
+    as the block alone would be split over ``parts`` devices."""
+    def want(j):
+        return [tuple(lo + c for c in sharding.chunk(hi - lo, parts, j))
+                for lo, hi in blocks]
+    return want
+
+
+def _resplit(t, dim: int, blocks):
+    """``t``, placed with ``dim`` split over one mesh axis in chunks that
+    cut across ``blocks``, as one DTensor a block, each split alike over
+    that axis: one all-to-all (``sharding.take``), differentiable."""
+    mesh, pl = t.device_mesh, tuple(t.placements)
+    a = pl.index(Shard(dim))
+    parts, me = mesh.size(a), mesh.get_coordinate()[a]
+    want = _by_block(blocks, parts)
+    pieces = sharding.take(t, dim, want, "ssm re-split").split(
+        [hi - lo for lo, hi in want(me)], dim)
+    shape = tuple(t.shape)
+    return [sharding.from_pieces(
+        p, mesh, pl, shape[:dim] + (hi - lo,) + shape[dim + 1:])
+        for p, (lo, hi) in zip(pieces, blocks)]
+
+
 def _placed_in_proj(params: SSM, x, cfg: ModelConfig):
-    """Placed prefill's (z, xc, dt) and conv: in_proj's column blocks
-    z, x, B|C and dt formed apart, each split over ``ssm_inner`` (dt's
-    over ``ssm_heads``), and x's and B|C's convs apart.  A split of the whole
-    product's columns (the reference's constraint on xc) cuts across the
-    blocks, and DTensor gathers a split dimension to slice it; GSPMD
-    moves the pieces instead.  Returns (z, xc after the conv, dt, xc
-    before it)."""
+    """Placed prefill's (z, xc, dt) and conv.  in_proj's product is split
+    over ``ssm_inner`` (the reference's constraint) in chunks that cut
+    across its column blocks z, x, B|C and dt; one all-to-all re-splits
+    it block by block (dt as the heads), GSPMD's collective-permute,
+    where slicing the product, or in_proj, would gather it whole.  The
+    conv's weights are re-split by the same blocks, and x's and B|C's
+    convs run apart on their shards.  Returns (z, xc after the conv, dt,
+    the product)."""
     di, N = cfg.ssm_d_inner, cfg.ssm_state
-    w = shard(params.in_proj, None, None)
-    cw = shard(params.conv_w, None, None)
-    cb = shard(params.conv_b, None)
+    proj = shard(x @ params.in_proj, "batch", "seq", "ssm_inner")
+    z, xp, bc, dt = _resplit(
+        proj, 2, ((0, di), (di, 2 * di), (2 * di, 2 * di + 2 * N),
+                  (2 * di + 2 * N, proj.shape[2])))
+    conv = ((0, di), (di, di + 2 * N))
+    cw = _resplit(params.conv_w, 1, conv)
+    cb = _resplit(params.conv_b, 0, conv)
+    xs = _causal_conv(xp, cw[0], cb[0])
+    bcs = _causal_conv(bc, cw[1], cb[1])
+    return z, (xs, bcs), dt, proj
 
-    def cols(lo, hi, axis):
-        return x @ shard(w[:, lo:hi], None, axis)
 
-    z = cols(0, di, "ssm_inner")
-    xp = cols(di, 2 * di, "ssm_inner")
-    bc = cols(2 * di, 2 * di + 2 * N, "ssm_inner")
-    dt = cols(2 * di + 2 * N, w.shape[1], "ssm_heads")
-    xs = _causal_conv(xp, shard(cw[:, :di], None, "ssm_inner"),
-                      shard(cb[:di], "ssm_inner"))
-    bcs = _causal_conv(bc, shard(cw[:, di:], None, "ssm_inner"),
-                       shard(cb[di:], "ssm_inner"))
-    return z, (xs, bcs), dt, (xp, bc)
+def _placed_conv_cache(proj, cfg: ModelConfig):
+    """The prefill's conv cache, placed as ``ssm_cache_logical_axes``
+    says, from in_proj's product (``_placed_in_proj``): its last
+    ``CONV_WIDTH - 1`` rows of the conv's columns [x | B | C], which one
+    all-to-all re-splits as the cache's channels (left-padded with zeros
+    locally when the prompt is shorter).  No device holds the (B, L, .)
+    conv input whole."""
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    B, L, _ = proj.shape
+    mesh, pl = proj.device_mesh, tuple(proj.placements)
+    parts = mesh.size(pl.index(Shard(2)))
+    local = sharding.take(proj[:, max(L - (CONV_WIDTH - 1), 0):], 2,
+                          _by_block(((di, 2 * di + 2 * N),), parts),
+                          "ssm conv cache")
+    if L < CONV_WIDTH - 1:
+        local = F.pad(local, (0, 0, CONV_WIDTH - 1 - L, 0))
+    return sharding.from_pieces(local, mesh, pl,
+                                (B, CONV_WIDTH - 1, di + 2 * N))
 
 
 def _silu(x):
@@ -261,8 +301,10 @@ def ssm_forward(params: SSM, x, cfg: ModelConfig,
     Bsz, L, _ = x.shape
     di, N, H, Pd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads,
                     cfg.ssm_headdim)
-    if is_placed(params.in_proj):
-        z, (xs, bcs), dtl, pre = _placed_in_proj(params, x, cfg)
+    # placed where x is: reading a parameter split over a batch axis
+    # gathers it (FSDP), so the test reads none
+    if is_placed(x):
+        z, (xs, bcs), dtl, proj = _placed_in_proj(params, x, cfg)
         xs, Bm, Cm = xs.float(), bcs[..., :N].float(), bcs[..., N:].float()
     else:
         zxbcdt = x @ params.in_proj
@@ -294,9 +336,9 @@ def ssm_forward(params: SSM, x, cfg: ModelConfig,
         return out, None
     # conv cache = the last (W-1) *pre-activation* conv inputs, left-padded
     # with zeros when the prompt is shorter
-    if isinstance(pre, tuple):
-        pre = torch.cat(pre, dim=-1)
-    if L >= CONV_WIDTH - 1:
+    if is_placed(x):
+        conv_cache = _placed_conv_cache(proj, cfg)
+    elif L >= CONV_WIDTH - 1:
         conv_cache = pre[:, -(CONV_WIDTH - 1):, :]
     else:
         conv_cache = F.pad(pre, (0, 0, CONV_WIDTH - 1 - L, 0))
@@ -330,16 +372,9 @@ def _placed_decode_inputs(params: SSM, x, cfg: ModelConfig, cache: Dict):
     mesh, pl = proj.device_mesh, tuple(proj.placements)
     a = pl.index(Shard(2))          # the mesh axis splitting the columns
     parts, me = mesh.size(a), mesh.get_coordinate()[a]
-    blocks = ((0, di), (di, 2 * di + 2 * N), (2 * di + 2 * N, proj.shape[2]))
-
-    def by_block(j):
-        return [tuple(lo + c for c in sharding.chunk(hi - lo, parts, j))
-                for lo, hi in blocks]
-
-    pieces = sharding.take(proj, 2, by_block, "ssm decode").split(
-        [hi - lo for lo, hi in by_block(me)], 2)
-    z, xc_new, dtl = (sharding.from_pieces(t, mesh, pl, (B, 1, hi - lo))
-                      for t, (lo, hi) in zip(pieces, blocks))
+    z, xc_new, dtl = _resplit(
+        proj, 2, ((0, di), (di, 2 * di + 2 * N),
+                  (2 * di + 2 * N, proj.shape[2])))
 
     conv_out, window = sharding.on_shards(
         "decode_conv", _decode_conv, cache["conv"],

@@ -16,14 +16,20 @@ inherits process-group or XLA device state:
     B 8 x S 64: FLOPs within ``FLOPS_FRAC`` of XLA's (of its dot
     instructions' in the ``DOT_HELD`` cases), total collective bytes
     within ``COLLECTIVE_BAND`` of the reference's ``collective_bytes``;
-    and the largest local tensor inside a placed MoE layer against the
-    unplaced step's (``MOE_SPLIT_FRAC``);
+    the largest local tensor inside a placed MoE layer against the
+    unplaced step's (``MOE_SPLIT_FRAC``); the collectives of the SSM
+    prefill and train steps' in_proj and conv cache by the frames that
+    issued them (all-to-alls); and Whisper-tiny at its 6 heads, where
+    head_dim is split, its attention scores' collective against the one
+    XLA emits for them;
 (c) real collectives: 4 gloo processes on a (2, 2) mesh, the placed
-    forward, train step and decode step of each family's reduced fp32
-    config against the same step in one process, and the trained placed
-    model through a checkpoint; the MoE families again with the decode
-    step on the dispatch and a capacity that drops pairs, the pairs
-    dropped equal to one process's;
+    forward and its prefill cache, train step and decode step of each
+    family's reduced fp32 config against the same step in one process,
+    and the trained placed model through a checkpoint; the MoE families
+    again with the decode step on the dispatch and a capacity that drops
+    pairs, the pairs dropped equal to one process's; the SSM decode
+    bit for bit with ``take``'s form before it had a gradient; and
+    ``take``'s pieces and gradient against slicing the whole tensor;
 (d) the dry run on 16x16 for the 10 architectures at ``train_4k``, full
     width and 2 layers: every term a number, and the argument bytes of
     DTensor's local shards equal to ``argument_bytes``.
@@ -48,6 +54,9 @@ FAMILIES = ["starcoder2-7b", "mamba2-370m", "zamba2-7b",
             "pixtral-12b"]
 MODES = ("train", "prefill", "decode")
 MOE_FAMILIES = ["llama4-scout-17b-a16e", "deepseek-v3-671b"]
+SSM_FAMILIES = ["mamba2-370m", "zamba2-7b"]
+#: Whisper-tiny's steps at its published 6 heads, where head_dim is split
+SPLIT_MODES = ("train", "prefill")
 #: as tests/test_torch_dryrun.py: matrix products against XLA's whole count
 FLOPS_FRAC = (0.85, 1.0)
 #: the port's collective bytes a device over the reference's
@@ -150,6 +159,56 @@ def test_per_device_counts_match_xla(runs, arch, mode):
         (coll, got, want)
 
 
+def _frames_with(records, *functions):
+    """The (kind, bytes, frames) records issued inside any of
+    ``functions`` ("file:function")."""
+    return [r for r in records if any(f in r[2] for f in functions)]
+
+
+@pytest.mark.parametrize("mode", SPLIT_MODES)
+def test_split_head_dim_scores_reduce_as_xla(runs, mode):
+    """Whisper-tiny at its 6 heads on the (2, 4) mesh, head_dim split:
+    the plain attention's partial Q K^T scores (and its backward's dP
+    and rowsum(dO o O)) move by the collective XLA emits for the
+    reference's scores, an all-reduce, whatever DTensor would choose;
+    the step's collective bytes within the band of XLA's."""
+    sites = _get(runs, "fake")["counts"]["sites"][f"split/{mode}"]
+    want = _get(runs, "xla")[f"split/{mode}"]
+    got = sorted({k for k, _, _ in _frames_with(
+        sites, "ref.py:_masked_scores", "ref.py:flash_attention_bwd_ref",
+        "ref.py:decode_attention_ref")})
+    assert want["score_collectives"] == ["all-reduce"], want
+    assert got == want["score_collectives"], sites
+    counts = _get(runs, "fake")["counts"][f"split/{mode}"]
+    coll = (sum(counts["collectives"].values())
+            / sum(want["collectives"].values()))
+    assert COLLECTIVE_BAND[0] <= coll <= COLLECTIVE_BAND[1], (coll, counts)
+
+
+@pytest.mark.parametrize("mode", ("train", "prefill"))
+@pytest.mark.parametrize("arch", SSM_FAMILIES)
+def test_placed_ssm_in_proj_and_conv_cache_move_by_all_to_all(runs, arch,
+                                                              mode):
+    """In the placed SSM prefill and train steps on the (2, 4) mesh,
+    in_proj's product, the conv's weights and the prefill's conv cache
+    are re-split by all-to-alls: nothing in ``_placed_in_proj`` or
+    ``_placed_conv_cache`` gathers, but the train rules' FSDP gather of
+    in_proj over the data axis as it is read (``__getattr__``), which
+    GSPMD makes too."""
+    sites = _get(runs, "fake")["counts"]["sites"][f"{arch}/{mode}"]
+    inside = _frames_with(sites, "ssm.py:_placed_in_proj",
+                          "ssm.py:_placed_conv_cache")
+    assert any(k == "all-to-all" for k, _, _ in _frames_with(
+        inside, "ssm.py:_placed_in_proj")), sites
+    if mode == "prefill":
+        assert any(k == "all-to-all" for k, _, _ in _frames_with(
+            inside, "ssm.py:_placed_conv_cache")), sites
+    for kind, moved, frames in inside:
+        assert kind == "all-to-all" or (
+            kind == "all-gather" and mode == "train"
+            and "sharding.py:__getattr__" in frames), (kind, moved, frames)
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("arch", MOE_FAMILIES)
 def test_placed_moe_dispatch_holds_no_whole_buffer(runs, arch, mode):
@@ -167,6 +226,38 @@ def test_placed_moe_dispatch_holds_no_whole_buffer(runs, arch, mode):
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_gloo_forward_matches_one_process(runs, arch):
     assert _get(runs, "gloo")[arch]["forward_max_abs"] <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_gloo_prefill_cache_matches_one_process(runs, arch):
+    """The placed forward's prefill cache, leaf by leaf; the SSM conv
+    cache laid out by ``ssm_cache_logical_axes`` from each device's
+    pieces (the stacked layer axis leads: batch over data, channels over
+    model), never gathered whole."""
+    r = _get(runs, "gloo")[arch]
+    assert r["prefill_cache_max_abs"] <= LOGIT_TOL, r
+    if arch in SSM_FAMILIES:
+        assert r["prefill_conv_placements"] and all(
+            p == ["S(1)", "S(3)"] for p in r["prefill_conv_placements"]), r
+
+
+@pytest.mark.parametrize("arch", SSM_FAMILIES)
+def test_gloo_ssm_decode_bit_for_bit_with_take_before(runs, arch):
+    """The placed SSM decode through ``take`` with its gradient equals the
+    same decode through the form it had before (kept in the worker),
+    logits and cache, bit for bit."""
+    assert _get(runs, "gloo")[arch]["decode_take_bit_for_bit"]
+
+
+def test_gloo_take_gradient_equals_slicing(runs):
+    """``take`` on 4 gloo ranks (chunks of 3, 3, 3, 1; ranges across chunk
+    bounds, taken by several ranks and twice by one): each rank's pieces
+    equal the slices of the whole tensor, and x's gradient the gradient
+    of those slices, placed as x."""
+    r = _get(runs, "gloo")["take"]
+    assert r["out_max_abs"] == 0.0, r
+    assert r["grad_max_abs"] <= 1e-12, r
+    assert r["grad_placements"] == ["S(0)"], r
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

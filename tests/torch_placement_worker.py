@@ -15,25 +15,32 @@ OUT.json:
   placed forward (serve rules), one placed train step (train rules) and
   one placed decode step against a prefilled cache (serve rules), each
   against the same step unplaced in the same process, from the same
-  seeded weights and inputs, and the pairs each step drops at capacity
-  (``moe.DROPPED``); the MoE families again with the decode step on the
-  dispatch (``MOE_DECODE_DISPATCH``) and a capacity that drops pairs
-  (``DROPPING_CAPACITY``), with the experts whose pairs come from both
-  data ranks and are dropped.  Rank 0 writes the differences.
+  seeded weights and inputs, the forward's prefill cache too, and the
+  pairs each step drops at capacity (``moe.DROPPED``); the SSM decode
+  again through ``take``'s form before it had a gradient
+  (``_take_before``), bit for bit; the MoE families again with the
+  decode step on the dispatch (``MOE_DECODE_DISPATCH``) and a capacity
+  that drops pairs (``DROPPING_CAPACITY``), with the experts whose
+  pairs come from both data ranks and are dropped; and ``take`` on a
+  1-D mesh of the 4 ranks against slicing the whole tensor, its
+  gradient too.  Rank 0 writes the differences.
 - ``fake``: fake groups of 256, 512 and 8 ranks: every parameter of the
   10 architectures at full size on meta, placed by the train rules on
   16x16 and 2x16x16, DTensor's local shape on rank 0 and on the last
   rank beside ``dist.sharding.local_shape``; the port's per-device
-  counts of the 7 families' reduced fp32 steps on a (2, 4) mesh; and
-  the largest local tensor inside the MoE layers of the two MoE
-  families' steps there and in one process.
+  counts of the 7 families' reduced fp32 steps on a (2, 4) mesh and of
+  Whisper-tiny's at its 6 heads (head_dim split), with the collectives
+  of the latter and of the SSM prefill and train steps by the frames
+  that issued them; and the largest local tensor inside the MoE layers
+  of the two MoE families' steps there and in one process.
 - ``dryrun``: ``launch.dryrun.run_case`` on 16x16 (a fake group of
   256) for the 10 architectures at ``train_4k``, full width, 2 layers.
-- ``xla``: the reference's ``build_case`` for the same 21 steps,
+- ``xla``: the reference's ``build_case`` for the same 23 steps,
   compiled on 8 host devices on an ``AxisType.Auto`` (2, 4) mesh (jax
   0.9's default Explicit axes fail the reference's own ``shard``) under
   ``flags.unrolled_scans()``: XLA's FLOPs (``cost_analysis``), its dot
-  instructions' FLOPs and collective bytes a device.
+  instructions' FLOPs and collective bytes a device, and at Whisper-tiny's
+  6 heads the kinds of the collectives that move attention scores.
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ from repro_torch.launch.mesh import (fake_group, make_mesh,  # noqa: E402
 from repro_torch.models import flags  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.train.optimizer import AdamW  # noqa: E402
 
@@ -141,6 +149,51 @@ def _spanning_drops(eidx, cfg, pieces: int) -> int:
     return n
 
 
+def _take_before(x, dim, want, name):
+    """``dist.sharding.take`` as it was before it had a gradient, kept
+    here to hold the placed decode to it bit for bit."""
+    from torch.distributed._functional_collectives import \
+        all_to_all_single
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    (a,) = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+    parts, n = mesh.size(a), x.shape[dim]
+    me = mesh.get_coordinate()[a]
+
+    def clip(lo, hi, i):
+        lo_i, hi_i = sh.chunk(n, parts, i)
+        lo = min(max(lo, lo_i), hi_i)
+        return lo, max(lo, min(hi, hi_i))
+
+    local = x.to_local().movedim(dim, 0)
+    own = sh.chunk(n, parts, me)[0]
+    send = [[clip(lo, hi, me) for lo, hi in want(j)] for j in range(parts)]
+    recv = [[clip(lo, hi, i) for lo, hi in want(me)] for i in range(parts)]
+    data = all_to_all_single(
+        torch.cat([local[:0]] + [local[lo - own:hi - own]
+                                 for pieces in send for lo, hi in pieces]),
+        [sum(hi - lo for lo, hi in p) for p in recv],
+        [sum(hi - lo for lo, hi in p) for p in send], (mesh, a))
+    at, rows = 0, {}
+    for i, pieces in enumerate(recv):
+        for k, (lo, hi) in enumerate(pieces):
+            rows[k, i] = (at, at + hi - lo)
+            at += hi - lo
+    return torch.cat([data[rows[k, i][0]:rows[k, i][1]]
+                      for k in range(len(want(me)))
+                      for i in range(parts)]).movedim(0, dim)
+
+
+@contextlib.contextmanager
+def _take_without_grad():
+    take, sh.take = sh.take, _take_before
+    try:
+        yield
+    finally:
+        sh.take = take
+
+
 def _family(arch: str, mesh, path: str, capacity_factor=None) -> dict:
     """``arch``'s placed steps against one process; ``capacity_factor``
     replaces the config's (the MoE dispatch runs)."""
@@ -162,18 +215,30 @@ def _family(arch: str, mesh, path: str, capacity_factor=None) -> dict:
     trules = dryrun.rules_for(cfg, train, GLOO_MESH[1])
     out = {}
 
-    # forward; each step's pairs dropped at capacity, placed and not
+    # forward with its prefill cache; each step's pairs dropped at
+    # capacity, placed and not
     dropped = out["dropped"] = {}
     with torch.no_grad():
-        ((want, _, _), drop_want), routes = _routing(lambda: _dropped(
-            lambda: model_mod.forward(cfg, lm, batch)))
+        ((want, want_cache, _), drop_want), routes = _routing(
+            lambda: _dropped(lambda: model_mod.forward(
+                cfg, lm, batch, return_cache=True)))
         placed = sh.distribute(fresh(), mesh, serve)
         pbatch = sh.place_tree(batch, model_mod.batch_axes(batch), mesh,
                                serve)
         with sh.axis_rules(mesh, serve):
-            (got, _, _), drop_got = _dropped(
-                lambda: model_mod.forward(cfg, placed, pbatch))
+            (got, got_cache, _), drop_got = _dropped(
+                lambda: model_mod.forward(cfg, placed, pbatch,
+                                          return_cache=True))
     out["forward_max_abs"] = _max_diff(got, want)
+    out["prefill_cache_max_abs"] = max(
+        _max_diff(a, b) for a, b in zip(
+            torch.utils._pytree.tree_leaves(got_cache),
+            torch.utils._pytree.tree_leaves(want_cache)))
+    if tfm.is_ssm(cfg):
+        conv = [t for path, t in torch.utils._pytree.tree_flatten_with_path(
+            got_cache)[0] if "conv" in torch.utils._pytree.keystr(path)]
+        out["prefill_conv_placements"] = [
+            [str(p) for p in t.placements] for t in conv]
     dropped["forward"] = [drop_got, drop_want]
     if cfg.num_experts:
         out["spanning_drops"] = _spanning_drops(routes, cfg, GLOO_MESH[0])
@@ -238,6 +303,9 @@ def _family(arch: str, mesh, path: str, capacity_factor=None) -> dict:
         pcache = sh.place_tree(copy.deepcopy(cache),
                                model_mod.cache_logical_axes(cache), mesh,
                                serve)
+        before_cache = sh.place_tree(copy.deepcopy(cache),
+                                     model_mod.cache_logical_axes(cache),
+                                     mesh, serve)
         tok = torch.randint(0, cfg.vocab_size, (BATCH, 1),
                             generator=torch.Generator().manual_seed(2),
                             dtype=torch.int32)
@@ -256,7 +324,51 @@ def _family(arch: str, mesh, path: str, capacity_factor=None) -> dict:
     leaves = zip(torch.utils._pytree.tree_leaves(pcache),
                  torch.utils._pytree.tree_leaves(cache))
     out["cache_max_abs"] = max(_max_diff(a, b) for a, b in leaves)
+    if tfm.is_ssm(cfg):
+        # the placed decode again, its in_proj re-split by take's form
+        # before it had a gradient: bit for bit
+        with torch.no_grad(), sh.axis_rules(mesh, serve), \
+                _take_without_grad():
+            before, bcache = model_mod.decode_step(
+                cfg, placed, ptok, before_cache, pcur)
+        out["decode_take_bit_for_bit"] = bool(
+            torch.equal(sh.gather(before), sh.gather(got)) and all(
+                torch.equal(sh.gather(a), sh.gather(b)) for a, b in zip(
+                    torch.utils._pytree.tree_leaves(bcache),
+                    torch.utils._pytree.tree_leaves(pcache))))
     return out
+
+
+#: take's check on the gloo ranks: a dimension of TAKE_N rows over the 4
+#: ranks (chunks of 3, 3, 3 and 1), each rank taking what
+#: ``tests/test_torch_take.py`` has its ranks take
+TAKE_N = 10
+
+
+def _take_check(rank: int) -> dict:
+    """``sharding.take`` on a 1-D mesh of the 4 gloo ranks, dim 0 split:
+    this rank's pieces and the gathered gradient of x against slicing
+    the whole tensor (``test_torch_take._reference``)."""
+    from torch.distributed.tensor import Shard
+    from test_torch_take import _reference, _wants
+
+    mesh = make_mesh((GLOO_WORLD,), ("model",), device_type="cpu")
+    want = _wants(TAKE_N)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(TAKE_N, 3, 2, generator=g, dtype=torch.float64)
+    ups = [torch.randn(sum(hi - lo for lo, hi in want(j)), 3, 2,
+                       generator=g, dtype=torch.float64)
+           for j in range(GLOO_WORLD)]
+    want_out, want_grad = _reference(x, ups, want, GLOO_WORLD)
+    dx = sh.place(x, mesh, sh.ShardingRules({"rows": "model"}),
+                  ("rows", None, None)).requires_grad_(True)
+    assert tuple(dx.placements) == (Shard(0),)
+    out = sh.take(dx, 0, want, "take check")
+    (out * ups[rank]).sum().backward()
+    return {"out_max_abs": float((out.detach() - want_out[rank]).abs().max()),
+            "grad_max_abs": float((sh.gather(dx.grad) - want_grad)
+                                  .abs().max()),
+            "grad_placements": [str(p) for p in dx.grad.placements]}
 
 
 def _gloo_rank(rank: int, port: int, path: str) -> None:
@@ -265,7 +377,8 @@ def _gloo_rank(rank: int, port: int, path: str) -> None:
                             rank=rank, world_size=GLOO_WORLD)
     try:
         mesh = make_mesh(GLOO_MESH, ("data", "model"), device_type="cpu")
-        res = {arch: _family(arch, mesh, path) for arch in FAMILIES}
+        res = {"take": _take_check(rank)}
+        res.update({arch: _family(arch, mesh, path) for arch in FAMILIES})
         # the MoE families again with the decode step on the dispatch and
         # a capacity that drops pairs whatever the routing
         flags.MOE_DECODE_DISPATCH = True
@@ -314,21 +427,73 @@ def _shards() -> list:
     return rows
 
 
+def split_head_dim_whisper(cfg):
+    """Whisper-tiny's reduced config with its published 6 heads, which
+    do not divide the (2, 4) mesh's model axis: ``rules_for`` then splits
+    head_dim, as it does for the whole model on 16x16."""
+    return dataclasses.replace(cfg, num_heads=SPLIT_HEADS,
+                               num_kv_heads=SPLIT_HEADS)
+
+
+#: Whisper-tiny's heads, at which the (2, 4) mesh splits head_dim
+SPLIT_HEADS = 6
+SPLIT_MODES = ("train", "prefill")
+#: the SSM steps whose in_proj and conv cache re-split by all-to-all
+SSM_FAMILIES = ["mamba2-370m", "zamba2-7b"]
+
+
+def _sites(fn) -> list:
+    """[kind, bytes, the repro_torch frames ("file:function") that issued
+    it] of each collective the step counter counts while ``fn`` runs."""
+    import traceback
+
+    recs, count = [], dryrun.StepCounter.__torch_dispatch__
+
+    def attributed(self, func, types, args=(), kwargs=None):
+        before = dict(self.collectives)
+        out = count(self, func, types, args, kwargs)
+        for kind, n in self.collectives.items():
+            if n != before.get(kind, 0):
+                recs.append([kind, n - before.get(kind, 0), [
+                    f"{os.path.basename(f.filename)}:{f.name}"
+                    for f in traceback.extract_stack()
+                    if "repro_torch" in f.filename]])
+        return out
+
+    dryrun.StepCounter.__torch_dispatch__ = attributed
+    try:
+        dryrun.count(fn)
+    finally:
+        dryrun.StepCounter.__torch_dispatch__ = count
+    return recs
+
+
 def _counts() -> dict:
-    out = {}
+    """The per-device counts of the families' (2, 4) steps, those of
+    Whisper-tiny at 6 heads (``split/{mode}``) and, for it and the SSM
+    families, each collective by the frames that issued it (``sites``)."""
+    out, sites = {}, {}
     with fake_group(COUNT_WORLD):
         mesh = make_mesh(COUNT_MESH, ("data", "model"))
-        for arch in FAMILIES:
-            cfg = dataclasses.replace(reduce_for_smoke(get_arch(arch)),
-                                      dtype="float32")
-            for mode in MODES:
-                shape = ShapeConfig(f"{mode}_small", COUNT_SEQ, COUNT_BATCH,
-                                    mode)
-                rules = dryrun.rules_for(cfg, shape, COUNT_MESH[1])
-                case = dryrun.build_case(cfg, shape, mesh=mesh, rules=rules)
-                c = dryrun.count(case.fn)
-                out[f"{arch}/{mode}"] = {"flops": c.flops,
-                                         "collectives": c.collectives}
+        runs = [(arch, arch, mode, lambda c: c) for arch in FAMILIES
+                for mode in MODES]
+        runs += [(f"split/{mode}", "whisper-tiny", mode,
+                  split_head_dim_whisper) for mode in SPLIT_MODES]
+        for key, arch, mode, adapt in runs:
+            cfg = adapt(dataclasses.replace(
+                reduce_for_smoke(get_arch(arch)), dtype="float32"))
+            shape = ShapeConfig(f"{mode}_small", COUNT_SEQ, COUNT_BATCH,
+                                mode)
+            rules = dryrun.rules_for(cfg, shape, COUNT_MESH[1])
+            case = dryrun.build_case(cfg, shape, mesh=mesh, rules=rules)
+            c = dryrun.count(case.fn)
+            if "/" not in key:
+                key = f"{arch}/{mode}"
+            out[key] = {"flops": c.flops, "collectives": c.collectives}
+            if key.startswith("split/") or (arch in SSM_FAMILIES
+                                            and mode != "decode"):
+                sites[key] = _sites(case.fn)
+    out["sites"] = sites
     return out
 
 
@@ -431,6 +596,24 @@ def dot_flops(hlo: str) -> int:
     return total
 
 
+_COLL = re.compile(r"= (\(?[^\n]*?) (all-reduce|reduce-scatter|all-gather|"
+                   r"all-to-all|collective-permute)(-start)?\(")
+
+
+def score_collectives(hlo: str, batch: int, heads: int) -> list:
+    """The kinds of the collectives in an SPMD-partitioned HLO module that
+    move attention scores: a result (of a tuple's, any element) whose
+    dimensions, ones left out, are the local batch, the heads and two
+    sequence lengths (queries, keys)."""
+    kinds = set()
+    for m in _COLL.finditer(hlo):
+        for dims in re.findall(r"\w+\[([0-9,]*)\]", m.group(1)):
+            d = [n for n in _dims(dims) if n != 1]
+            if len(d) == 4 and d[:2] == [batch, heads]:
+                kinds.add(m.group(2))
+    return sorted(kinds)
+
+
 def xla(path: str) -> None:
     import jax
     from jax.sharding import AxisType
@@ -468,6 +651,24 @@ def xla(path: str) -> None:
                 "flops": compiled.cost_analysis()["flops"],
                 "dot_flops": dot_flops(hlo),
                 "collectives": collective_bytes(hlo)}
+    # Whisper-tiny at 6 heads, head_dim split: the collectives XLA emits
+    # for the attention scores
+    for mode in SPLIT_MODES:
+        cfg = split_head_dim_whisper(dataclasses.replace(
+            jreduce(jget_arch("whisper-tiny")), dtype="float32"))
+        shape = JShapeConfig(f"{mode}_small", COUNT_SEQ, COUNT_BATCH, mode)
+        rules = rd.rules_for(cfg, shape, COUNT_MESH[1])
+        with flags.unrolled_scans(), axis_rules(mesh, rules):
+            fn, specs, ins, outs = rd.build_case(cfg, shape, mesh, rules)
+            compiled = jax.jit(fn, in_shardings=ins, out_shardings=outs,
+                               keep_unused=True).lower(*specs).compile()
+        hlo = compiled.as_text()
+        out[f"split/{mode}"] = {
+            "flops": compiled.cost_analysis()["flops"],
+            "dot_flops": dot_flops(hlo),
+            "collectives": collective_bytes(hlo),
+            "score_collectives": score_collectives(
+                hlo, COUNT_BATCH // COUNT_MESH[0], SPLIT_HEADS)}
     with open(path, "w") as f:
         json.dump(out, f)
 
