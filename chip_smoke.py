@@ -26,7 +26,8 @@ which must pass for the run to exit 0:
    q/k 192 against V 128 (S = T = 1999, a ragged 333, fully masked
    rows), Gemma-7B's causal hd 256 (H = Hkv = 16, S = T = 2048) and
    hd 160 at g 4 (S = T = 2048), and K1 also at StableLM-12B's hd 160
-   (g 4) and Qwen2-72B's group of 8; the SSD state scan (K3) in fp32 at
+   (g 4), Qwen2-72B's group of 8 and the train example's hd 96 (B = 8,
+   H = Hkv = 8, a 4096-slot cache); the SSD state scan (K3) in fp32 at
    Zamba2-7B's and Mamba2-370M's prefill shapes, one chunk, 33 chunks
    from a random state, decays all 0 and all 1, strided states and
    Mamba2-370M's trained shape (b = 4).  The two backward kernels
@@ -43,7 +44,8 @@ which must pass for the run to exit 0:
    backward kernels at the trained shapes and at StableLM-12B's,
    Gemma-7B's and DeepSeek-V3's MLA widths (K2's forward also at
    StableLM-12B's hd 160, Gemma-7B's hd 256 and, both ways, at the train
-   example's hd 96, B = 8, S = T = 128), K2's beside the autograd
+   example's hd 96, B = 8, S = T = 128; K1 at its model's decode, B = 8
+   over 4096 slots), K2's beside the autograd
    backward of ``scaled_dot_product_attention`` (timed only), with each
    of its kernels' device time;
 4. serve: StarCoder2-7B (dense), Zamba2-7B (hybrid: 81 Mamba2 layers
@@ -88,11 +90,12 @@ which must pass for the run to exit 0:
    recompute, their backward once); every gradient must be present and
    finite and the loss must fall.  DeepSeek-V3 at its 3 dense layers
    (3.6 B parameters, a 43 GB state), B = 2, S = 2048, trains MLA through
-   K2 at q/k 192 and V 128, forward and backward.  Then one fp32 forward
-   and backward
-   at full width and cut depth (``FP32_TRAIN``) through the kernels
-   against the same with ``kernels.ops`` patched to the plain versions
-   on the card: the loss and every gradient leaf;
+   K2 at q/k 192 and V 128, forward and backward, and Gemma-7B at 4 of
+   its 28 layers, B = 2, S = 2048, 3 steps, K2's wide backward at hd
+   256.  Then one fp32 forward and backward at full width and cut depth
+   (``FP32_TRAIN``: also StableLM-12B's hd 160 and Gemma-7B's hd 256)
+   through the kernels against the same with ``kernels.ops`` patched to
+   the plain versions on the card: the loss and every gradient leaf;
 6. placement: an NCCL process group of one rank and ``make_local_mesh()``
    = (1, 1) with a ``DeviceMesh``.  The train phase's StarCoder2-7B
    case and Mamba2-370M at B 2 x S 1024 (``PLACED_TRAIN``) each take one
@@ -117,7 +120,10 @@ which must pass for the run to exit 0:
    share), and each placed on 16x16 (a fake process group of 256): one
    device's FLOPs, bytes and collective bytes, the compute, memory and
    collective terms and the bottleneck, and the trace seconds; any
-   failing case fails the phase.
+   failing case fails the phase, as does a placed SSM train step
+   (Mamba2-370M, Zamba2-7B at train_4k) whose collective term is more
+   than ``TORCH_VERSION_TOL`` from the one this repo's CPU dry run gives
+   under torch 2.13 (``SSM_TRAIN_COLLECTIVE_MS``).
    For each config phase 5 trained, the dry run's argument bytes
    (parameters, AdamW's state, the batch) must equal the device memory
    the run had requested when its first step started, within
@@ -707,6 +713,9 @@ def check_kernels(dev):
             B=4, H=32, Hkv=8, T=4096, hd=160, cur=[4095, 1999, 777, 130])),
         ("qwen2 decode g=8 B=4 W=4096", dict(
             B=4, H=64, Hkv=8, T=4096, hd=128, cur=[4095, 1999, 777, 130])),
+        ("train example decode hd=96 B=8 W=4096", dict(
+            B=8, H=8, Hkv=8, T=4096, hd=96,
+            cur=[4095, 1999, 777, 130] * 2)),
     ]
     errs = {"flash_attention": 0.0, "decode_attention": 0.0,
             "ssd_scan": 0.0, "arma_fit": 0.0, "bucket_step": 0.0,
@@ -924,7 +933,8 @@ def time_kernels(dev, errs):
     Zamba2-7B's hd = 112, Llama-4 Scout's and Pixtral-12B's widths,
     DeepSeek-V3's MLA prefill (q/k 192, V 128), Whisper-tiny's encoder,
     cross-attention and decode, StableLM-12B's hd 160, Gemma-7B's hd
-    256, Qwen2-72B's group of 8 (K2 also at the train example's hd 96);
+    256, Qwen2-72B's group of 8 and the train example's hd 96 (K2 at its
+    B = 8, S = T = 128; K1 at B = 8 over a 4096-slot cache);
     K3 at Zamba2-7B's prefill of 2000
     tokens; the backward kernels at the trained shapes (``bwd_row``: also
     StableLM-12B's hd 160 and Gemma-7B's hd 256; K3's at Mamba2-370M's
@@ -1058,6 +1068,7 @@ def time_kernels(dev, errs):
     decode_row("gemma-7b", 4, 16, 16, 4096, 256, fill)
     flash_row("qwen2-72b", 1, 64, 8, 2000, 128)
     decode_row("qwen2-72b", 4, 64, 8, 4096, 128, fill)
+    decode_row("train example", 8, 8, 8, 4096, 96, fill * 2)
 
     # K3 at Zamba2-7B's prefill of a 2000-token prompt: 8 chunks of 256
     b, c, h, p, n = 1, 8, 112, 64, 64
@@ -1437,17 +1448,22 @@ def check_fp32_decode(dev, arch: str, seq, steps: int, bf16_gap) -> float:
 #: once.  DeepSeek-V3's swings from 12.2 to 14.8 at 3e-5 and 18.9 at
 #: 1e-4; at 1e-5 it falls at once (to 9.9 by step 5; 3e-6: 11.9).
 #: Mamba2-370M falls smoothly at 3e-4 (``scripts/torch_train_lr.py``
-#: runs other peaks).
+#: runs other peaks).  Gemma-7B at 4 of its 28 layers (1.9 B parameters,
+#: most of them its 256k-row tied embedding) takes K2's wide backward at
+#: hd 256 end to end, 3 steps at StarCoder2-7B's peak.
 TRAINED = (("starcoder2-7b", dict(num_layers=16), 2, 2048, 6, True, 1e-5),
            ("mamba2-370m", {}, 4, 2048, 6, True, 3e-4),
-           ("deepseek-v3-671b", dict(num_layers=3), 2, 2048, 6, True, 1e-5))
+           ("deepseek-v3-671b", dict(num_layers=3), 2, 2048, 6, True, 1e-5),
+           ("gemma-7b", dict(num_layers=4), 2, 2048, 3, True, 1e-5))
 PROFILED_STEP = 2        # which training step to profile
 #: the fp32 step, kernels against plain versions on the card: (arch,
 #: depth cut, batch, sequence length)
 FP32_TRAIN = (("starcoder2-7b", dict(num_layers=2), 1, 2048),
               ("mamba2-370m", dict(num_layers=4), 2, 2048),
               ("deepseek-v3-671b", dict(num_layers=1, num_dense_layers=1), 1,
-               2048))
+               2048),
+              ("stablelm-12b", dict(num_layers=2), 1, 2048),
+              ("gemma-7b", dict(num_layers=2), 1, 2048))
 # fp32, kernels vs plain versions (both fp32, no TF32): loss rel 1e-5 and
 # each gradient leaf rel L2 1e-4, the CPU parity tests' bounds against
 # jax.value_and_grad (tests/test_torch_train.py)
@@ -2001,6 +2017,13 @@ def placement(dev):
 DRY_MEMORY_SLACK = 1e-4
 ALLOCATOR_ROUNDING = 2**20 + 511     # bytes a tensor's block may add
 DRY_WORKERS = 6          # processes tracing the 40 cases on the host
+#: the placed SSM train steps' collective term on 16x16 at train_4k (ms)
+#: under torch 2.13.0+cpu, ``python -m repro_torch.launch.dryrun --arch
+#: ARCH --shape train_4k --mesh 16x16`` (PERF.md): the port asks for
+#: each of their collectives, so the card's torch must give the same
+#: term within ``TORCH_VERSION_TOL``
+SSM_TRAIN_COLLECTIVE_MS = {"mamba2-370m": 786.8894, "zamba2-7b": 4941.7492}
+TORCH_VERSION_TOL = 0.05
 
 
 def dry_case(arch: str, shape: str):
@@ -2036,7 +2059,7 @@ def dry_run(trained) -> None:
         f"size on the meta device, one H100 (local mesh) and 16x16; "
         f"{DRY_WORKERS} processes")
     cases = [(a, s) for a in ARCHS for s in SHAPES]
-    failed = []
+    failed, placed = [], {}
     with ProcessPoolExecutor(
             DRY_WORKERS, mp_context=multiprocessing.get_context("spawn")) \
             as pool:
@@ -2048,8 +2071,20 @@ def dry_run(trained) -> None:
                 failed.append(f"{a} x {s}: {type(e).__name__}: {e}")
                 log(f"  {a} x {s}: FAILED: {type(e).__name__}: {e}")
                 continue
+            placed[a, s] = prod
             log(f"  {dryrun.format_case(local)}")
             log(f"    {dryrun.format_case(prod)}")
+    for arch, want in SSM_TRAIN_COLLECTIVE_MS.items():
+        if (arch, "train_4k") not in placed:
+            continue
+        got = placed[arch, "train_4k"]["collective_t"] * 1e3
+        rel = abs(got - want) / want
+        log(f"  {arch} train_4k 16x16 collective term: {got:.2f} ms under "
+            f"torch {torch.__version__}, {want:.2f} ms under 2.13.0+cpu, "
+            f"{rel:.2%} apart (tol {TORCH_VERSION_TOL:.0%})")
+        if rel > TORCH_VERSION_TOL:
+            failed.append(f"{arch} x train_4k: the collective term depends "
+                          f"on the torch version")
     if failed:
         raise SystemExit(f"dryrun: {len(failed)} of {len(cases)} cases "
                          f"failed: {failed}")

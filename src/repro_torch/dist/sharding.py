@@ -280,7 +280,23 @@ class _GatherOnUse:
                      for axis, pl in zip(mesh.axis_names, value.placements))
         if want == tuple(value.placements):
             return value
-        return value.redistribute(value.device_mesh, want)
+        return _Gathered.apply(value, want)
+
+
+class _Gathered(torch.autograd.Function):
+    """A parameter redistributed to ``want`` (gathered over the batch
+    axes), its gradient, a partial sum over those axes, reduce-scattered
+    back onto the parameter's placements: GSPMD's FSDP collectives,
+    asked for here rather than left to DTensor's backward."""
+
+    @staticmethod
+    def forward(ctx, p, want):
+        ctx.placements = tuple(p.placements)
+        return p.redistribute(p.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
 
 
 def _gathering(cls):
@@ -407,19 +423,102 @@ def on_shards(name: str, fn, lead, args, dims, outs, strict: bool = False):
     return wrapped(*args)
 
 
-def reduced(x):
-    """``x`` with any partial sum it holds all-reduced (``Partial`` ->
-    ``Replicate``): the collective GSPMD emits where a product contracts
-    over a split dimension (attention's Q K^T over a split head_dim)
-    and a softmax or another op that is not linear follows.  Asked for
-    here rather than left to DTensor, whose choice depends on the torch
-    version (2.11 all-reduces, 2.13 reduce-scatters).  Anything else as
-    it is."""
-    if not isinstance(x, DTensor) or \
-            not any(p.is_partial() for p in x.placements):
+def _summed(x):
+    """``x`` with its partial sums all-reduced (``Partial`` ->
+    ``Replicate``), else ``x``."""
+    if not any(p.is_partial() for p in x.placements):
         return x
     return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
                                           else p for p in x.placements])
+
+
+class _Reduced(torch.autograd.Function):
+    """:func:`reduced` (``forward`` True) or :func:`reduced_grad`: the
+    gradient's partial sums all-reduced, and with ``forward`` x's."""
+
+    @staticmethod
+    def forward(ctx, x, forward):
+        out = _summed(x) if forward else x
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad), None
+
+
+def reduced(x):
+    """``x`` with any partial sum it holds all-reduced (``Partial`` ->
+    ``Replicate``), and its gradient alike: the collective GSPMD emits
+    where a product contracts over a split dimension and an op that is
+    not linear follows (attention's Q K^T over a split head_dim, a norm's
+    mean over split channels).  Asked for here rather than left to
+    DTensor, whose choice depends on the torch version (2.11
+    all-reduces, 2.13 reduce-scatters, or re-splits the other operand
+    by an all-to-all).  Anything not placed as it is; a placed ``x``
+    that has no gradient as :func:`_summed` gives it."""
+    if not isinstance(x, DTensor):
+        return x
+    if not x.requires_grad:
+        return _summed(x)
+    return _Reduced.apply(x, True)
+
+
+def reduced_grad(x):
+    """``x`` as it is, its gradient's partial sums all-reduced: GSPMD's
+    collective where a tensor whole over an axis meets one split over it
+    in a product (a norm's output feeding a projection that contracts
+    over a split dimension, the SSM gate norm's scale meeting its split
+    channels), which leaves the gradient a partial sum; DTensor would
+    reduce it wherever an op next needs it whole, which the torch
+    version decides.  Anything without a gradient as it is."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _Reduced.apply(x, False)
+
+
+class _Product(torch.autograd.Function):
+    """:func:`product`'s ``x @ w`` with ``w``'s gradient formed split by
+    its rows over ``axes`` (mesh dims over which both operands are
+    whole)."""
+
+    @staticmethod
+    def forward(ctx, x, w, axes):
+        ctx.save_for_backward(x, w)
+        ctx.axes = axes
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dy @ w.T if ctx.needs_input_grad[0] else None
+        # each device its own rows of w's gradient: x split by its last
+        # dimension over the axes (a local slice: x is whole there)
+        xs = x.redistribute(x.device_mesh, [
+            Shard(x.ndim - 1) if i in ctx.axes else p
+            for i, p in enumerate(x.placements)])
+        dw = xs.reshape(-1, w.shape[0]).T @ dy.reshape(-1, w.shape[1])
+        return dx, dw, None
+
+
+def product(x, w):
+    """``x @ w`` for a weight ``w`` (2-D).  Placed in a step that trains,
+    where a mesh axis splits neither operand (both whole on every device
+    of it: attention's projections where the head_dim, not the heads, is
+    split), the forward and x's gradient are formed whole, as GSPMD
+    forms them, but w's gradient x^T dy is formed split by w's rows over
+    that axis, each device its own rows, and gathered back where w is
+    read: GSPMD's partitioned program forms no device's copy of that
+    product whole either.  Anything else: ``x @ w``."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)
+            and torch.is_grad_enabled() and w.requires_grad):
+        return x @ w
+    axes = tuple(i for i, (a, b) in enumerate(zip(x.placements,
+                                                   w.placements))
+                 if a == Replicate() and b == Replicate()
+                 and x.device_mesh.size(i) > 1)
+    if not axes:
+        return x @ w
+    return _Product.apply(x, w, axes)
 
 
 def gather(x):
@@ -566,9 +665,27 @@ def from_pieces(local: torch.Tensor, mesh, pl: Sequence[Placement],
     ``pl`` (over a ``Partial()`` axis a term of a sum), as a DTensor;
     differentiable, its gradient returned in ``pl`` (replicated over a
     partial axis: each term's gradient is the sum's)."""
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(local, mesh, tuple(pl), run_check=False,
-                              shape=torch.Size(shape), stride=stride)
+    return _FromPieces.apply(local, mesh, tuple(pl), torch.Size(shape))
+
+
+class _FromPieces(torch.autograd.Function):
+    """:func:`from_pieces`, its gradient redistributed to the pieces'
+    placements (a partial sum all-reduced, or reduce-scattered onto a
+    split) by the port rather than by DTensor's backward."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, pl, shape):
+        ctx.mesh, ctx.want = mesh, tuple(Replicate() if p.is_partial()
+                                         else p for p in pl)
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=shape, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.want:
+            grad = grad.redistribute(ctx.mesh, ctx.want)
+        return grad.to_local(), None, None, None
 
 
 class _Constrain(torch.autograd.Function):

@@ -674,6 +674,7 @@ cudaError_t dispatch(const Args& a, int dtype, cudaStream_t st) {
     case 16: return bf ? launch_bf16<16>(a, st) : launch_f32<16>(a, st);
     case 32: return bf ? launch_bf16<32>(a, st) : launch_f32<32>(a, st);
     case 64: return bf ? launch_bf16<64>(a, st) : launch_f32<64>(a, st);
+    case 96: return bf ? launch_bf16<96>(a, st) : launch_f32<96>(a, st);
     case 112: return bf ? launch_bf16<112>(a, st) : launch_f32<112>(a, st);
     case 128: return bf ? launch_bf16<128>(a, st) : launch_f32<128>(a, st);
     case 160: return bf ? launch_bf16<160>(a, st) : launch_f32<160>(a, st);

@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
 
-HEAD_DIMS = (16, 32, 64, 112, 128, 160, 256)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 160, 256)
 _PAIRS = tuple((d, d) for d in HEAD_DIMS)  # V at q/k's head dim
 MAX_GROUP = 16     # GMAX in the source: query heads per kv head
 TILE = 64          # chunks (fp32 kernel) are multiples of this

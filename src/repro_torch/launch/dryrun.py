@@ -52,12 +52,17 @@ the bottleneck among the three.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
 import math
+import os
+import re
 import sys
 import time
+import traceback
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -176,24 +181,77 @@ def _nbytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+#: a frame of ``traceback.format_stack``'s text (autograd's record of
+#: where a backward node's forward op ran)
+_FRAME = re.compile(r'File "([^"]+)", line (\d+), in (\S+)')
+#: where a site's frames pass from a backward to its forward's
+BACKWARD_OF = "backward of"
+#: the files of the autograd engine's entry (``backward()``): frames
+#: further out made the step, not the backward op
+_ENGINE_ENTRIES = ("torch/autograd/graph.py", "torch/autograd/__init__.py")
+
+
+def _port_frame(filename: str, name: str, line) -> Optional[str]:
+    """"file:function:line" for a frame of ``repro_torch`` (this module's
+    left out), else None."""
+    path = filename.replace(os.sep, "/")
+    if "repro_torch/" not in path or path.endswith("launch/dryrun.py"):
+        return None
+    return f"{os.path.basename(path)}:{name}:{line}"
+
+
+def site() -> Tuple[str, ...]:
+    """The frames of ``repro_torch`` ("file:function:line", innermost
+    first) that issued the op running now.  In a backward, those of the
+    code that runs it (an autograd Function's ``backward``; none for an
+    aten op's backward, which DTensor partitions itself), then
+    ``BACKWARD_OF`` and the frames where its forward op ran (recorded
+    under ``torch.autograd.detect_anomaly``, which ``count(sites=True)``
+    turns on).  A forward that remat recomputes inside a backward is a
+    forward."""
+    here = []
+    node = torch._C._current_autograd_node()
+    for f in reversed(traceback.extract_stack()):
+        path = f.filename.replace(os.sep, "/")
+        if node is not None and path.endswith("torch/utils/checkpoint.py"):
+            return tuple(here)                      # a recomputed forward
+        if node is not None and path.endswith(_ENGINE_ENTRIES):
+            break                                   # backward() itself
+        frame = _port_frame(f.filename, f.name, f.lineno)
+        if frame is not None:
+            here.append(frame)
+            if node is not None and f.name == "backward":
+                break
+    if node is None:
+        return tuple(here)
+    fwd = [_port_frame(m.group(1), m.group(3), m.group(2))
+           for text in reversed(node.metadata.get("traceback_", ()))
+           for m in _FRAME.finditer(text)]
+    return tuple(here) + (BACKWARD_OF,) + tuple(f for f in fwd if f)
+
+
 class StepCounter(TorchDispatchMode):
     """What one device does in a step: the matrix-product FLOPs
     (``torch.utils.flop_counter``'s formulas), each op's tensor input
     and output bytes (an in-place op's operand counts as read and as
     written; views and allocations that write nothing are skipped) and
     each collective's result bytes by kind, an all-reduce's twice.
+    With ``sites``, the FLOPs and each collective's bytes also by the
+    frames that issued them (``sites[what, site()]``, ``what`` "flops"
+    or the collective's kind).
 
     Over DTensors it counts the local ops only: an op on a DTensor is
     left to DTensor (``NotImplemented``), whose local ops and
     collectives then reach this mode on plain tensors; the fake tensors
     DTensor runs to propagate global shapes are not counted."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
         self.flops = 0
         self.bytes = 0
         self.collectives: Dict[str, int] = {}
         self.collective_t = 0.0
+        self.sites = collections.Counter() if sites else None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -212,8 +270,10 @@ class StepCounter(TorchDispatchMode):
         if any(isinstance(t, FakeTensor) for t in leaves):
             return out
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs,
-                                                out_val=out)
+            flops = flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += flops
+            if self.sites is not None and flops:
+                self.sites["flops", site()] += flops
         name = packet.__name__
         if not (func.is_view or name in _NO_DATA):
             self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
@@ -223,6 +283,8 @@ class StepCounter(TorchDispatchMode):
             moved = _nbytes(out) * COLLECTIVE_FACTOR.get(kind, 1)
             self.collectives[kind] = self.collectives.get(kind, 0) + moved
             self.collective_t += moved / link_bw(_group_size(args))
+            if self.sites is not None:
+                self.sites[kind, site()] += moved
         return out
 
 
@@ -272,9 +334,17 @@ def _group_size(args) -> int:
     return _resolve_process_group(name).size()
 
 
-def count(fn: Callable[[], object]) -> StepCounter:
-    """The counts of running ``fn``."""
-    with _uncounted_sharding_propagation(), StepCounter() as counter:
+def count(fn: Callable[[], object], sites: bool = False) -> StepCounter:
+    """The counts of running ``fn``; with ``sites``, by site too (under
+    anomaly mode, which records where each backward node's forward ran)."""
+    with contextlib.ExitStack() as stack:
+        if sites:
+            stack.enter_context(warnings.catch_warnings())
+            warnings.filterwarnings("ignore", "Anomaly Detection")
+            stack.enter_context(torch.autograd.detect_anomaly(
+                check_nan=False))
+        stack.enter_context(_uncounted_sharding_propagation())
+        counter = stack.enter_context(StepCounter(sites))
         fn()
     return counter
 
@@ -466,9 +536,11 @@ def cut_depth(cfg: ModelConfig, layers: Optional[int]) -> ModelConfig:
 
 def run_case(arch: str, shape_name: str, mesh: str = "local",
              remat: bool = True, verbose: bool = True,
-             opts=frozenset(), layers: Optional[int] = None) -> Dict:
+             opts=frozenset(), layers: Optional[int] = None,
+             sites: bool = False) -> Dict:
     """One case on ``mesh``; a production mesh's inside a fake process
-    group of its size.  ``layers`` cuts the depth (``cut_depth``)."""
+    group of its size.  ``layers`` cuts the depth (``cut_depth``);
+    ``sites`` adds the counts by site (``StepCounter.sites``)."""
     check_opts(opts)
     cfg = cut_depth(get_arch(arch), layers)
     shape = get_shape(shape_name)
@@ -479,7 +551,7 @@ def run_case(arch: str, shape_name: str, mesh: str = "local",
             model_flags(opts):
         m = MESHES[mesh]()
         case = build_case(cfg, shape, remat=remat, mesh=m, rules=rules)
-        counts = count(case.fn)
+        counts = count(case.fn, sites)
         local_bytes = local_argument_bytes(case)
     arg_bytes = argument_bytes(case, m, rules)
     peak = PEAK_FLOPS_FP32 if cfg.dtype == "float32" else PEAK_FLOPS
@@ -511,6 +583,8 @@ def run_case(arch: str, shape_name: str, mesh: str = "local",
         "useful_flops_frac": (model_flops / counts.flops if counts.flops
                               else None),
     }
+    if sites:
+        result["sites"] = counts.sites
     if verbose:
         print(format_case(result), flush=True)
     return result

@@ -32,8 +32,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (is_placed, replicated_like, shard,
-                                       unflatten)
+from repro_torch.dist.sharding import (is_placed, product, replicated_like,
+                                       shard, unflatten)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (Norm, apply_norm, apply_rope,
@@ -135,7 +135,7 @@ def _proj(params: Attention, x, w: str, heads: int, cfg: ModelConfig,
     split as the heads ``axis`` is first, so that each device forms its
     own heads' columns only (GSPMD's constraint on the result does that
     by itself; DTensor would form them all and then split them)."""
-    y = x @ shard(getattr(params, w), None, axis)
+    y = product(x, shard(getattr(params, w), None, axis))
     if cfg.use_qkv_bias:
         y = y + shard(getattr(params, "b" + w[1:]), axis)
     return unflatten(y, x.shape[0], x.shape[1], heads, cfg.head_dim)
@@ -176,7 +176,8 @@ def attention_forward(params: Attention, x, cfg: ModelConfig, positions,
     # placed, the heads whole on each device before they are flattened
     # (torch 2.11's DTensor flattens no split head_dim)
     out = shard(out.transpose(1, 2), "batch", "seq", "heads", None)
-    y = shard(out.reshape(B, S, -1) @ shard(params.wo, "heads", None),
+    y = shard(product(out.reshape(B, S, -1),
+                      shard(params.wo, "heads", None)),
               "batch", "seq", "embed_act")
     if not return_cache:
         return y, None

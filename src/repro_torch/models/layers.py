@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import shard
+from repro_torch.dist.sharding import reduced_grad, shard
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -79,7 +79,12 @@ class Norm(nn.Module):
 
 
 def apply_norm(params: Norm, x: torch.Tensor, cfg: ModelConfig):
-    """Normalise in fp32 and cast back to x.dtype."""
+    """Normalise in fp32 and cast back to x.dtype.  Placed, the output's
+    gradient is all-reduced here where the branch it feeds left a partial
+    sum (a product that contracts over a split dimension: attention's,
+    an MLP's, in_proj's, the head's input), the collective XLA emits at
+    that product's backward, so the residual stream's gradient stays
+    whole and no constraint or norm below has DTensor reduce it."""
     xf = x.float()
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
@@ -91,7 +96,7 @@ def apply_norm(params: Norm, x: torch.Tensor, cfg: ModelConfig):
     y = y * params.scale
     if "bias" in params._parameters:
         y = y + params.bias
-    return y.to(x.dtype)
+    return reduced_grad(y.to(x.dtype))
 
 
 # --------------------------------------------------------------------------

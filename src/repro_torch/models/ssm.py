@@ -235,6 +235,16 @@ def _placed_in_proj(params: SSM, x, cfg: ModelConfig):
     return z, (xs, bcs), dt, proj
 
 
+def _placed_bc(bcs, N: int):
+    """B and C (fp32) from the placed conv's output ``bcs`` (B, L, 2N),
+    its channels split: whole on every device (all-gathered), as the
+    SSD's products over the heads take them, their gradients (partial
+    sums over the heads) all-reduced: GSPMD's collectives for them,
+    asked for rather than left to DTensor's slicing."""
+    bcs = shard(bcs, "batch", "seq", None)
+    return bcs[..., :N].float(), bcs[..., N:].float()
+
+
 def _placed_conv_cache(proj, cfg: ModelConfig):
     """The prefill's conv cache, placed as ``ssm_cache_logical_axes``
     says, from in_proj's product (``_placed_in_proj``): its last
@@ -288,9 +298,11 @@ def _gated_out(cfg: ModelConfig, params: SSM, y, z, x_conv):
     y = y + params.D[:, None] * x_conv.reshape(y.shape)
     yf = y.reshape(*y.shape[:-2], cfg.ssm_d_inner)
     yf = yf * F.silu(z.float())
-    ms = yf.square().mean(-1, keepdim=True)
+    # placed, the channels split: the mean's partial sums, and the
+    # gradient of the scale the channels share, all-reduced as GSPMD does
+    ms = sharding.reduced(yf.square().mean(-1, keepdim=True))
     # the reference's gate-norm eps is 1e-6 whatever cfg.norm_eps says
-    yf = yf * torch.rsqrt(ms + 1e-6) * params.gate_norm
+    yf = yf * sharding.reduced_grad(torch.rsqrt(ms + 1e-6)) * params.gate_norm
     return yf.to(model_dtype(cfg)) @ params.out_proj
 
 
@@ -305,7 +317,7 @@ def ssm_forward(params: SSM, x, cfg: ModelConfig,
     # gathers it (FSDP), so the test reads none
     if is_placed(x):
         z, (xs, bcs), dtl, proj = _placed_in_proj(params, x, cfg)
-        xs, Bm, Cm = xs.float(), bcs[..., :N].float(), bcs[..., N:].float()
+        xs, (Bm, Cm) = xs.float(), _placed_bc(bcs, N)
     else:
         zxbcdt = x @ params.in_proj
         z, xc, dtl = _split_proj(cfg, zxbcdt)

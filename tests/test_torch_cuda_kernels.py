@@ -172,6 +172,7 @@ def test_flash_kernel_fully_masked_rows(dev, dtype):
     (2, 4, 4, 5, 64, 0),               # a cache shorter than a sub-tile
     (2, 4, 2, 130, 16, 0),             # hd 16
     (2, 4, 2, 400, 160, 0),            # hd 160
+    (8, 8, 8, 4096, 96, 0),            # hd 96: the train example's model
 ])
 def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, T, hd, window):
     q = randn(dev, (B, H, hd), dtype, 7)

@@ -173,3 +173,34 @@ def test_reduced_all_reduces_a_partial_sum_only():
         assert sh.reduced(s) is s
     plain = torch.zeros(3)
     assert sh.reduced(plain) is plain
+
+
+@pytest.mark.parametrize("fn", ["reduced", "reduced_grad"])
+def test_reduced_all_reduces_a_partial_gradient(fn):
+    """``sharding.reduced``'s and ``reduced_grad``'s gradient: a partial
+    sum (a tensor whole over an axis met one split over it in a product,
+    as a norm's output meets a projection split over its input) is
+    all-reduced to the forward's placements, GSPMD's collective, not
+    left to DTensor; a gradient that holds no partial sum passes as it
+    is.  ``reduced_grad`` leaves its input as it is, a partial sum too
+    (the long-context decode's attention partitions one itself)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    with fake_group(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
+                                                               "model"))
+        for grad_pl, local, want in (
+                ((Shard(0), Partial()), (2, 4), (Shard(0), Replicate())),
+                ((Shard(0), Shard(1)), (2, 2), (Shard(0), Shard(1)))):
+            x = DTensor.from_local(torch.zeros(2, 4), mesh,
+                                   [Shard(0), Replicate()],
+                                   run_check=False).requires_grad_(True)
+            y = getattr(sh, fn)(x)
+            assert tuple(y.placements) == (Shard(0), Replicate())
+            y.backward(DTensor.from_local(torch.ones(local), mesh,
+                                          list(grad_pl), run_check=False))
+            assert tuple(x.grad.placements) == want, grad_pl
+        p = DTensor.from_local(torch.zeros(2, 4), mesh, [Shard(0), Partial()],
+                               run_check=False).requires_grad_(True)
+        want = (Shard(0), Replicate() if fn == "reduced" else Partial())
+        assert tuple(getattr(sh, fn)(p).placements) == want

@@ -30,8 +30,8 @@ OUT.json:
   rank beside ``dist.sharding.local_shape``; the port's per-device
   counts of the 7 families' reduced fp32 steps on a (2, 4) mesh and of
   Whisper-tiny's at its 6 heads (head_dim split), with the collectives
-  of the latter and of the SSM prefill and train steps by the frames
-  that issued them; and the largest local tensor inside the MoE layers
+  of the latter and of the SSM prefill and train steps by their sites
+  (``launch.dryrun.site``); and the largest local tensor inside the MoE layers
   of the two MoE families' steps there and in one process.
 - ``dryrun``: ``launch.dryrun.run_case`` on 16x16 (a fake group of
   256) for the 10 architectures at ``train_4k``, full width, 2 layers.
@@ -39,8 +39,10 @@ OUT.json:
   compiled on 8 host devices on an ``AxisType.Auto`` (2, 4) mesh (jax
   0.9's default Explicit axes fail the reference's own ``shard``) under
   ``flags.unrolled_scans()``: XLA's FLOPs (``cost_analysis``), its dot
-  instructions' FLOPs and collective bytes a device, and at Whisper-tiny's
-  6 heads the kinds of the collectives that move attention scores.
+  instructions' FLOPs and collective bytes a device, at Whisper-tiny's
+  6 heads the kinds of the collectives that move attention scores, and
+  in the SSM train step those that move the tensors whose collectives
+  the port pins (``ssm_collectives``).
 """
 from __future__ import annotations
 
@@ -440,38 +442,25 @@ SPLIT_HEADS = 6
 SPLIT_MODES = ("train", "prefill")
 #: the SSM steps whose in_proj and conv cache re-split by all-to-all
 SSM_FAMILIES = ["mamba2-370m", "zamba2-7b"]
+#: the family whose train step's SSM tensors XLA's collectives are found
+#: for by shape: the pure SSM stack (the hybrid's shared attention block
+#: moves tensors of the residual's shape by other collectives)
+SSM_SITES_ARCH = "mamba2-370m"
 
 
-def _sites(fn) -> list:
-    """[kind, bytes, the repro_torch frames ("file:function") that issued
-    it] of each collective the step counter counts while ``fn`` runs."""
-    import traceback
-
-    recs, count = [], dryrun.StepCounter.__torch_dispatch__
-
-    def attributed(self, func, types, args=(), kwargs=None):
-        before = dict(self.collectives)
-        out = count(self, func, types, args, kwargs)
-        for kind, n in self.collectives.items():
-            if n != before.get(kind, 0):
-                recs.append([kind, n - before.get(kind, 0), [
-                    f"{os.path.basename(f.filename)}:{f.name}"
-                    for f in traceback.extract_stack()
-                    if "repro_torch" in f.filename]])
-        return out
-
-    dryrun.StepCounter.__torch_dispatch__ = attributed
-    try:
-        dryrun.count(fn)
-    finally:
-        dryrun.StepCounter.__torch_dispatch__ = count
-    return recs
+def _records(counter) -> list:
+    """[kind, bytes, frames] of each collective site the step counter
+    kept (``launch.dryrun.site``'s frames: those that issued it, and in a
+    backward ``BACKWARD_OF`` and the forward op's)."""
+    return [[what, n, list(frames)] for (what, frames), n
+            in counter.sites.items() if what != "flops"]
 
 
 def _counts() -> dict:
     """The per-device counts of the families' (2, 4) steps, those of
     Whisper-tiny at 6 heads (``split/{mode}``) and, for it and the SSM
-    families, each collective by the frames that issued it (``sites``)."""
+    families' prefill and train, each collective by its site
+    (``sites``)."""
     out, sites = {}, {}
     with fake_group(COUNT_WORLD):
         mesh = make_mesh(COUNT_MESH, ("data", "model"))
@@ -486,13 +475,14 @@ def _counts() -> dict:
                                 mode)
             rules = dryrun.rules_for(cfg, shape, COUNT_MESH[1])
             case = dryrun.build_case(cfg, shape, mesh=mesh, rules=rules)
-            c = dryrun.count(case.fn)
             if "/" not in key:
                 key = f"{arch}/{mode}"
+            by_site = key.startswith("split/") or (arch in SSM_FAMILIES
+                                                   and mode != "decode")
+            c = dryrun.count(case.fn, sites=by_site)
             out[key] = {"flops": c.flops, "collectives": c.collectives}
-            if key.startswith("split/") or (arch in SSM_FAMILIES
-                                            and mode != "decode"):
-                sites[key] = _sites(case.fn)
+            if by_site:
+                sites[key] = _records(c)
     out["sites"] = sites
     return out
 
@@ -614,6 +604,36 @@ def score_collectives(hlo: str, batch: int, heads: int) -> list:
     return sorted(kinds)
 
 
+_COLL_OP = re.compile(r"= (\(?[^\n]*?) (all-reduce|reduce-scatter|"
+                      r"all-gather|all-to-all|collective-permute)"
+                      r"(?:-start)?\(")
+
+
+def ssm_collectives(hlo: str, batch: int, seq: int, d_model: int,
+                    chunk: int, state: int) -> dict:
+    """The kinds of the collectives in the reference's partitioned SSM
+    train step that move each tensor whose site the port pins, found by
+    its shape (a float's, ones left out), forward and backward together
+    (XLA's combiner merges the two directions' all-reduces into one op):
+    ``norm``, the gate norm's mean (local batch, seq); ``bc``, B or C
+    and G = C B^T (local batch, chunks, chunk, state, with the chunk as
+    long as the state); ``residual``, the layer's output and the
+    gradient of its input (local batch, seq, d_model)."""
+    shapes = {"norm": [batch, seq],
+              "bc": [batch, seq // chunk, chunk, state],
+              "residual": [batch, seq, d_model]}
+    out = {name: set() for name in shapes}
+    for m in _COLL_OP.finditer(hlo):
+        for dtype, dims in re.findall(r"(\w+)\[([0-9,]*)\]", m.group(1)):
+            if dtype not in ("f32", "bf16"):       # token ids, positions
+                continue
+            d = [n for n in _dims(dims) if n != 1]
+            for name, want in shapes.items():
+                if d == want:
+                    out[name].add(m.group(2))
+    return {name: sorted(kinds) for name, kinds in out.items()}
+
+
 def xla(path: str) -> None:
     import jax
     from jax.sharding import AxisType
@@ -651,6 +671,10 @@ def xla(path: str) -> None:
                 "flops": compiled.cost_analysis()["flops"],
                 "dot_flops": dot_flops(hlo),
                 "collectives": collective_bytes(hlo)}
+            if arch == SSM_SITES_ARCH and mode == "train":
+                out[f"{arch}/{mode}"]["ssm_sites"] = ssm_collectives(
+                    hlo, COUNT_BATCH // COUNT_MESH[0], COUNT_SEQ,
+                    cfg.d_model, cfg.ssm_chunk, cfg.ssm_state)
     # Whisper-tiny at 6 heads, head_dim split: the collectives XLA emits
     # for the attention scores
     for mode in SPLIT_MODES:
