@@ -1,0 +1,146 @@
+"""The benchmark's weights: drawn from the seed on the device, in the
+type they are served in, in two large calls (one buffer in the model
+dtype, one in float32), then viewed leaf by leaf and scaled in place.
+
+The leaves are named and shaped from the configuration file's
+``model`` section alone, in the layout the port's parameter tree has
+(weights ``(in, out)``, applied as ``x @ w``).  :func:`load` hands them
+to the port's module and raises if the port's tree differs.  The plain
+references read the same dictionary; the check draws it again from the
+seed after the program is freed, so the reference takes nothing that
+the program held.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import torch
+
+from bench.harness.shapes import padded_vocab
+
+Leaf = Tuple[str, Tuple[int, ...], str, str]   # name, shape, dtype, init
+
+
+def _norm(prefix: str, d: int, layernorm: bool) -> List[Leaf]:
+    out = [(f"{prefix}.scale", (d,), "float32", "scale")]
+    if layernorm:
+        out.append((f"{prefix}.bias", (d,), "float32", "shift"))
+    return out
+
+
+def _attn_block(prefix: str, m: Dict) -> List[Leaf]:
+    d, H, Hkv, hd = m["d_model"], m["num_heads"], m["num_kv_heads"], \
+        m["head_dim"]
+    ln, dt = m["norm"] == "layernorm", m["dtype"]
+    out = _norm(f"{prefix}.norm1", d, ln)
+    out += [(f"{prefix}.attn.wq", (d, H * hd), dt, "dense"),
+            (f"{prefix}.attn.wk", (d, Hkv * hd), dt, "dense"),
+            (f"{prefix}.attn.wv", (d, Hkv * hd), dt, "dense"),
+            (f"{prefix}.attn.wo", (H * hd, d), dt, "dense")]
+    if m["use_qkv_bias"]:
+        out += [(f"{prefix}.attn.bq", (H * hd,), dt, "bias"),
+                (f"{prefix}.attn.bk", (Hkv * hd,), dt, "bias"),
+                (f"{prefix}.attn.bv", (Hkv * hd,), dt, "bias")]
+    out += _norm(f"{prefix}.norm2", d, ln)
+    f = m["d_ff"]
+    out += [(f"{prefix}.mlp.wi", (d, f), dt, "dense"),
+            (f"{prefix}.mlp.wo", (f, d), dt, "dense")]
+    if m["act"] in ("silu", "geglu"):
+        out.append((f"{prefix}.mlp.wg", (d, f), dt, "dense"))
+    return out
+
+
+def _ssm_layer(prefix: str, m: Dict) -> List[Leaf]:
+    d, dt = m["d_model"], m["dtype"]
+    di = m["ssm_expand"] * d
+    N, H = m["ssm_state"], di // m["ssm_headdim"]
+    return [(f"{prefix}.norm.scale", (d,), "float32", "scale"),
+            (f"{prefix}.mixer.in_proj", (d, 2 * di + 2 * N + H), dt, "dense"),
+            (f"{prefix}.mixer.conv_w", (4, di + 2 * N), dt, "conv"),
+            (f"{prefix}.mixer.conv_b", (di + 2 * N,), dt, "bias"),
+            (f"{prefix}.mixer.A_log", (H,), "float32", "a_log"),
+            (f"{prefix}.mixer.D", (H,), "float32", "scale"),
+            (f"{prefix}.mixer.dt_bias", (H,), "float32", "dt_bias"),
+            (f"{prefix}.mixer.gate_norm", (di,), "float32", "scale"),
+            (f"{prefix}.mixer.out_proj", (di, d), dt, "dense")]
+
+
+def leaves(m: Dict) -> List[Leaf]:
+    """Every leaf of the model that ``m`` (a config's ``model`` section)
+    describes: dense (pre-norm attention + MLP blocks) or hybrid
+    (Mamba2 layers with one shared attention block)."""
+    d, V, dt = m["d_model"], padded_vocab(m), m["dtype"]
+    out: List[Leaf] = [("embed.tok", (V, d), dt, "embed"),
+                       ("embed.head", (d, V), dt, "dense")]
+    out += _norm("final_norm", d, m["norm"] == "layernorm")
+    if m["family"] == "dense":
+        for i in range(m["num_layers"]):
+            out += _attn_block(f"dense_layers.{i}", m)
+    elif m["family"] == "hybrid":
+        for i in range(m["num_layers"]):
+            out += _ssm_layer(f"layers.{i}", m)
+        out += _attn_block("shared_attn", m)
+    else:
+        raise ValueError(f"no weights for family {m['family']!r}")
+    return out
+
+
+@torch.no_grad()
+def _init(w: torch.Tensor, shape, kind: str) -> None:
+    """Turn standard normal draws ``w`` into the leaf's values in place."""
+    if kind == "dense":
+        w.mul_(1.0 / math.sqrt(shape[0]))
+    elif kind == "embed":
+        w.mul_(1.0 / math.sqrt(shape[1]))
+    elif kind == "scale":
+        w.mul_(0.1).add_(1.0)
+    elif kind in ("shift", "bias"):
+        w.mul_(0.1)
+    elif kind == "conv":
+        w.mul_(0.2)
+    elif kind == "a_log":
+        w.copy_(torch.log(torch.arange(1, w.numel() + 1, dtype=w.dtype,
+                                       device=w.device)))
+    elif kind == "dt_bias":   # dt log-uniform in [1e-3, 0.1], inverse softplus
+        u = torch.special.ndtr(w)
+        dt = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
+        w.copy_(dt + torch.log(-torch.expm1(-dt)))
+    else:
+        raise ValueError(kind)
+
+
+@torch.no_grad()
+def make(m: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """The weights of ``m`` from ``seed``: one normal draw per dtype over
+    a flat buffer on ``device``, then each leaf a view of it."""
+    spec = leaves(m)
+    gen = torch.Generator(device=device).manual_seed(seed % 2**63)
+    out: Dict[str, torch.Tensor] = {}
+    for dtype in sorted({s[2] for s in spec}):
+        mine = [s for s in spec if s[2] == dtype]
+        total = sum(math.prod(s[1]) for s in mine)
+        flat = torch.empty(total, dtype=getattr(torch, dtype), device=device)
+        flat.normal_(generator=gen)
+        at = 0
+        for name, shape, _, kind in mine:
+            n = math.prod(shape)
+            w = flat[at:at + n].view(shape)
+            _init(w, shape, kind)
+            out[name] = w
+            at += n
+    return {name: out[name] for name, *_ in spec}
+
+
+def load(module: torch.nn.Module, weights: Dict[str, torch.Tensor]) -> None:
+    """Put ``weights`` into the port's ``module`` (built on the meta
+    device) without a copy; raise if its leaves' names, shapes or dtypes
+    are not the benchmark's."""
+    want = {n: (tuple(w.shape), w.dtype) for n, w in weights.items()}
+    have = {n: (tuple(p.shape), p.dtype)
+            for n, p in module.named_parameters()}
+    if want != have:
+        diff = sorted(set(want.items()) ^ set(have.items()))[:6]
+        raise ValueError(f"the port's parameters differ from the "
+                         f"benchmark's leaves: {diff}")
+    module.load_state_dict(weights, strict=True, assign=True)
