@@ -269,6 +269,9 @@ PROFILED_CALL = 2        # which prefill and which decode call to profile
 #: one (fp32)
 BWD_KERNELS = ("bwd_prep", "bwd_deadsum", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
                "bwd_dsum", "bwd_dkdv", "bwd_dq")
+#: the port's own profiler ranges (``repro_torch.tracing``): the device
+#: timeline shows them too, where they are no kernel
+RANGE_PREFIXES = ("kernel.", "serve.", "tracing.")
 PORT_KERNELS = ("flash_fwd_wgmma", "flash_fwd", "decode_split_mma",
                 "decode_split", "decode_combine", "ssd_scan") + BWD_KERNELS
 #: the Hopper kernels the build phase logs instantiation by instantiation
@@ -481,7 +484,8 @@ def profiled(label: str, fn, ranges=None, shares=None):
                    for e in events
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0
-                   and e.key not in ranges), reverse=True)
+                   and e.key not in ranges
+                   and not e.key.startswith(RANGE_PREFIXES)), reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"  [profile] {label}: wall {wall_ms:.2f} ms under the profiler, "
         f"device busy {busy:.2f} ms ({busy / wall_ms:.0%}), "
@@ -530,7 +534,8 @@ def bwd_kernel_times(fn) -> dict:
     times = {kernel_name(e.key): e.self_device_time_total / 1e3
              for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA
-             and e.self_device_time_total > 0}
+             and e.self_device_time_total > 0
+             and not e.key.startswith(RANGE_PREFIXES)}
     order = {k: i for i, k in enumerate(BWD_KERNELS)}
     return dict(sorted(times.items(), key=lambda kv: order.get(
         kv[0].split("<")[0], len(order))))

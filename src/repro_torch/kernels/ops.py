@@ -26,11 +26,17 @@ scan in ``csrc/ssd_scan.cu``), counted in the kernel module's
 (``ref.flash_attention_bwd_ref``, ``ref.ssd_state_scan_bwd_ref``).  A
 call that needs no gradient (serving) runs the forward alone, as
 before.
+
+While a profiler records, each call of K1, K2 and K3 sits in a range,
+``kernel.k1``, ``kernel.k2`` and ``kernel.k3`` (``tracing.range``): the
+kernels launch through ctypes, so a CPU profile shows no operator of
+theirs.  Without a profiler the ranges cost one flag read.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.dist import sharding
 from repro_torch.kernels import arma_fit as _arma
 from repro_torch.kernels import bucket_step as _bucket
@@ -76,12 +82,13 @@ def flash_attention(q, k, v, q_pos, k_pos, *, scale: float,
         return _FlashAttention.apply(q, k, v, q_pos, k_pos, scale, causal,
                                      window)
 
-    if not sharding.is_placed(q):
-        return run(q, k, v, q_pos, k_pos)
-    return sharding.on_shards(
-        "flash_attention", run, q, (q, k, v, q_pos, k_pos),
-        ((0, 1), (0, 1), (0, 1), (0, None), (0, None)), ((0, 1),),
-        strict=q.is_cuda)
+    with tracing.range("kernel.k2"):
+        if not sharding.is_placed(q):
+            return run(q, k, v, q_pos, k_pos)
+        return sharding.on_shards(
+            "flash_attention", run, q, (q, k, v, q_pos, k_pos),
+            ((0, 1), (0, 1), (0, 1), (0, None), (0, None)), ((0, 1),),
+            strict=q.is_cuda)
 
 
 def decode_attention(q, k, v, k_pos, cur_pos, *, scale: float,
@@ -91,12 +98,13 @@ def decode_attention(q, k, v, k_pos, cur_pos, *, scale: float,
         fn = _dec.decode_attention if q.is_cuda else ref.decode_attention_ref
         return fn(q, k, v, k_pos, cur_pos, scale=scale, window=window)
 
-    if not sharding.is_placed(q):
-        return run(q, k, v, k_pos, cur_pos)
-    return sharding.on_shards(
-        "decode_attention", run, q, (q, k, v, k_pos, cur_pos),
-        ((0, 1), (0, 1), (0, 1), (0, None), (0, None)), ((0, 1),),
-        strict=q.is_cuda)
+    with tracing.range("kernel.k1"):
+        if not sharding.is_placed(q):
+            return run(q, k, v, k_pos, cur_pos)
+        return sharding.on_shards(
+            "decode_attention", run, q, (q, k, v, k_pos, cur_pos),
+            ((0, 1), (0, 1), (0, 1), (0, None), (0, None)), ((0, 1),),
+            strict=q.is_cuda)
 
 
 class _SSDStateScan(torch.autograd.Function):
@@ -120,11 +128,13 @@ class _SSDStateScan(torch.autograd.Function):
 def ssd_state_scan(states, decay, s0):
     """states: (b,c,h,p,n); decay: (b,c,h); s0: (b,h,p,n); all fp32.
     Returns (prev (b,c,h,p,n), final (b,h,p,n))."""
-    if not sharding.is_placed(states):
-        return _SSDStateScan.apply(states, decay, s0)
-    return sharding.on_shards(
-        "ssd_state_scan", _SSDStateScan.apply, states, (states, decay, s0),
-        ((0, 2), (0, 2), (0, 1)), ((0, 2), (0, 1)), strict=states.is_cuda)
+    with tracing.range("kernel.k3"):
+        if not sharding.is_placed(states):
+            return _SSDStateScan.apply(states, decay, s0)
+        return sharding.on_shards(
+            "ssd_state_scan", _SSDStateScan.apply, states,
+            (states, decay, s0), ((0, 2), (0, 2), (0, 1)),
+            ((0, 2), (0, 1)), strict=states.is_cuda)
 
 
 def arma_fit(y, init, p: int, q: int, steps: int, lr: float):

@@ -3,7 +3,8 @@
 Drives the continuous-batching :class:`ServingEngine` with a mixed
 IW-F/IW-N request stream (every third request IW-F, TTFT deadlines
 +2/+20 steps after arrival) and a SageServe scheduler (default DPA),
-printing TTFT/E2E step counts.  ``--arch`` takes every architecture of
+printing TTFT/E2E step counts, and each request's TTFT in ms (submit to
+the return of the step that made its first token).  ``--arch`` takes every architecture of
 ``configs.ARCHS``: dense (``starcoder2-7b``, ``qwen2-72b``, ...), SSM and
 hybrid (``mamba2-370m``, ``zamba2-7b``), MoE (``llama4-scout-17b-a16e``,
 ``deepseek-v3-671b`` with MLA), VLM (``pixtral-12b``) and audio
@@ -95,7 +96,8 @@ def main(argv=None):
         eng.run()
     for r in reqs:
         print(f"req {r.rid} [{r.tier}] ttft_step={r.ttft_step} "
-              f"done_step={r.done_step} tokens={len(r.tokens)}")
+              f"ttft_ms={r.ttft_s * 1e3:.1f} done_step={r.done_step} "
+              f"tokens={len(r.tokens)}")
     if any(r.done_step is None for r in reqs):
         raise RuntimeError("some requests did not finish")
     print(f"served {len(reqs)} requests in {eng.step_count} engine steps "

@@ -16,6 +16,17 @@ audio prompt is decoded against encoder_seq zero frames (the stubbed
 front ends of the reference's engine).  The engine
 runs on CUDA unless the caller passes ``device="cpu"``; the cache is
 updated in place.  Every step runs under ``torch.inference_mode()``.
+
+The engine times itself (``repro_torch.tracing``), always on:
+``serve.submit`` (zero length, per request), ``serve.step`` (``n``:
+slots active at decode) holding ``serve.admit`` (``n``: queue length;
+the policy's order and the prefills) and ``serve.decode`` (``n``: active
+slots).  Each ``serve.prefill`` (``rid``, ``n`` = S) holds
+``serve.first_token`` (argmax and its copy to the host: the host waits
+for the device) and ``serve.write_slot`` (asynchronous); the decode
+holds ``serve.sample`` (argmax and ``.cpu()``: the host waits).  A
+request's ``ttft_s`` runs from its submit to the return of the step that
+made its first token.
 """
 from __future__ import annotations
 
@@ -27,7 +38,7 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, resolve_device, tracing
 from repro_torch.api.registry import resolve
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_mod
@@ -54,6 +65,8 @@ class ServeRequest:
     tokens: List[int] = dataclasses.field(default_factory=list)
     ttft_step: Optional[int] = None
     done_step: Optional[int] = None
+    submit_ns: Optional[int] = None  # tracing clock (perf_counter_ns)
+    ttft_s: Optional[float] = None   # submit to its first token's step end
 
     def __post_init__(self):
         if not self.prompt_tokens:
@@ -93,12 +106,15 @@ class ServingEngine:
         self.cache = model_mod.init_decode_cache(cfg, max_batch, max_seq,
                                                  device=self.device)
         self.step_count = 0
+        self._first: List[ServeRequest] = []   # admitted this step
         self._prefill = functools.partial(model_mod.forward, cfg,
                                           return_cache=True)
         self._decode = functools.partial(model_mod.decode_step, cfg)
 
     # ---------------------------------------------------------------- intake
     def submit(self, req: ServeRequest) -> None:
+        req.submit_ns = tracing.mark("serve.submit", self.step_count,
+                                     req.rid)
         self.queue.append(req)
 
     @property
@@ -122,22 +138,27 @@ class ServingEngine:
 
     def _prefill_into(self, slot: int, req: ServeRequest) -> None:
         S = len(req.prompt)
-        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                 device=self.device)[None, :]
-        batch, offset = prefill_batch(self.cfg, tokens)
-        if S + offset > self.max_seq:
-            raise ValueError(f"request {req.rid}: prompt of {S} tokens "
-                             f"(after {offset} patches) does not fit "
-                             f"max_seq={self.max_seq}")
-        logits, pcache, _ = self._prefill(self.params, batch)
-        next_tok = int(torch.argmax(logits[0, -1]))
-        _write_slot(self.cache, pcache, slot)
+        step = self.step_count
+        with tracing.span("serve.prefill", step, req.rid, S):
+            tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                     device=self.device)[None, :]
+            batch, offset = prefill_batch(self.cfg, tokens)
+            if S + offset > self.max_seq:
+                raise ValueError(f"request {req.rid}: prompt of {S} tokens "
+                                 f"(after {offset} patches) does not fit "
+                                 f"max_seq={self.max_seq}")
+            logits, pcache, _ = self._prefill(self.params, batch)
+            with tracing.span("serve.first_token", step, req.rid):
+                next_tok = int(torch.argmax(logits[0, -1]))
+            with tracing.span("serve.write_slot", step, req.rid):
+                _write_slot(self.cache, pcache, slot)
         st = self.slots[slot]
         st.req = req
         st.pos = S + offset
         st.remaining = req.max_new_tokens - 1
         req.tokens.append(next_tok)
-        req.ttft_step = self.step_count
+        req.ttft_step = step
+        self._first.append(req)
         if st.remaining <= 0:
             self._finish(slot)
 
@@ -154,19 +175,32 @@ class ServingEngine:
         for every active slot.  Runs under ``torch.inference_mode()``: no
         graph is built, whether or not the parameters require grad."""
         self.step_count += 1
-        self._admit()
+        with tracing.span("serve.step", self.step_count) as sp:
+            self._step(sp)
+        for req in self._first:
+            if req.submit_ns is not None:
+                req.ttft_s = (sp.t1 - req.submit_ns) / 1e9
+        self._first.clear()
+
+    def _step(self, sp: tracing.span) -> None:
+        step = self.step_count
+        with tracing.span("serve.admit", step, n=len(self.queue)):
+            self._admit()
         if self.active == 0:
             return
-        toks = np.zeros((self.max_batch, 1), np.int64)
-        pos = np.zeros((self.max_batch,), np.int32)
-        for i, s in enumerate(self.slots):
-            if s.req is not None:
-                toks[i, 0] = s.req.tokens[-1]
-                pos[i] = s.pos
-        logits, self.cache = self._decode(
-            self.params, torch.from_numpy(toks).to(self.device), self.cache,
-            torch.from_numpy(pos).to(self.device))
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+        sp.n = self.active
+        with tracing.span("serve.decode", step, n=sp.n):
+            toks = np.zeros((self.max_batch, 1), np.int64)
+            pos = np.zeros((self.max_batch,), np.int32)
+            for i, s in enumerate(self.slots):
+                if s.req is not None:
+                    toks[i, 0] = s.req.tokens[-1]
+                    pos[i] = s.pos
+            logits, self.cache = self._decode(
+                self.params, torch.from_numpy(toks).to(self.device),
+                self.cache, torch.from_numpy(pos).to(self.device))
+            with tracing.span("serve.sample", step):
+                nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
         for i, s in enumerate(self.slots):
             if s.req is None:
                 continue
