@@ -66,7 +66,10 @@ which must pass for the run to exit 0:
    or group per prefill, and for Whisper also once per encoder layer and
    cross-attention; K1 once per attention layer or group per decode
    step, for Whisper twice, for MLA never: its latent attention is
-   plain), and the longest request's last decode logits are held to a
+   plain; the engine replays its decode from a CUDA graph, so K1's
+   wrapper counts the eager first decode and the capture, and each later
+   decode counts the K1 launches of the profiled replay's device trace),
+   and the longest request's last decode logits are held to a
    full forward over its prompt and generated tokens: in bf16 for the
    dense, VLM and audio models (``SERVE_LOGIT_TOL``; the SSM, hybrid and
    MoE models' gaps are printed, with the pairs the MoE forward dropped
@@ -264,7 +267,13 @@ DDECAY_RTOL = 1e-5
 # own bound for a decode step against the full forward in fp32.
 SERVE_LOGIT_TOL = 3e-2
 FP32_LOGIT_TOL = 1e-3
-PROFILED_CALL = 2        # which prefill and which decode call to profile
+#: which prefill and which decode call to profile with the ``RANGES``:
+#: the engine's first decode is the one it runs eagerly (a replay of its
+#: CUDA graph runs no Python, so no range opens inside it)
+PROFILED_CALL = {"prefill": 2, "decode": 1}
+#: the decode call profiled to count the kernels a replay runs: the
+#: engine's third, its first that only replays (the second captures)
+REPLAY_CALL = 3
 #: K2's backward kernels: the tensor-core route (bf16), then the scalar
 #: one (fp32)
 BWD_KERNELS = ("bwd_prep", "bwd_deadsum", "bwd_dkdv_wgmma", "bwd_dq_wgmma",
@@ -450,7 +459,7 @@ def kernel_name(key: str) -> str:
     return "".join(m.groups("")) if m else key[:40]
 
 
-def profiled(label: str, fn, ranges=None, shares=None):
+def profiled(label: str, fn, ranges=None, shares=None, launches=None):
     """Run fn once under torch.profiler and print where its device time
     went: wall time (inflated by the profiler), device-busy share, the
     kernels with the most self device time and the port's own kernels,
@@ -459,7 +468,8 @@ def profiled(label: str, fn, ranges=None, shares=None):
     pairs run inside a range of that name), the device time of the
     kernels launched inside it and its share of the busy time; for each
     of ``shares`` (name: kernel names), those kernels' device time and
-    share of the busy time."""
+    share of the busy time.  ``launches``, a dict, is filled with the
+    number of launches of each kernel in the device trace."""
     import importlib
 
     from torch.autograd import DeviceType
@@ -487,6 +497,8 @@ def profiled(label: str, fn, ranges=None, shares=None):
                    and e.key not in ranges
                    and not e.key.startswith(RANGE_PREFIXES)), reverse=True)
     busy = sum(r[0] for r in rows)
+    if launches is not None:
+        launches.update((key, count) for _, count, key in rows)
     log(f"  [profile] {label}: wall {wall_ms:.2f} ms under the profiler, "
         f"device busy {busy:.2f} ms ({busy / wall_ms:.0%}), "
         f"{sum(r[1] for r in rows)} kernel launches")
@@ -1277,11 +1289,21 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
              "decode_tokens": 0, "prefill_calls": 0, "prefill_s": 0.0,
              "prefill_tokens": 0}
     decode, prefill = eng._decode, eng._prefill
+    if not eng._graphed:
+        raise SystemExit(f"serve {arch}: the engine on one card does not "
+                         f"replay its decode from a CUDA graph")
+    replayed = {}                # kernel: launches in the profiled replay
 
     def timed(fn, kind, label, ntok):
         stats[f"{kind}_calls"] += 1
-        if stats[f"{kind}_calls"] == PROFILED_CALL:
-            return profiled(label, fn, ranges=RANGES)
+        call = stats[f"{kind}_calls"]
+        if call == PROFILED_CALL[kind]:
+            return profiled(label + (", eager" if kind == "decode" else ""),
+                            fn, ranges=RANGES)
+        if kind == "decode" and call == REPLAY_CALL:
+            return profiled(label + ", replayed", fn, launches=replayed)
+        if kind == "decode" and call < REPLAY_CALL:
+            return fn()          # the capture, which replays once
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
@@ -1323,16 +1345,25 @@ def serve(dev, arch: str, n_requests: int, max_new: int):
     if any(r.done_step is None or len(r.tokens) != r.max_new_tokens
            for r in reqs):
         raise SystemExit(f"serve {arch}: a request did not finish")
+    # K1's wrapper counts the eager first decode and the capture, whose
+    # replay runs what it recorded; a replay calls no wrapper, so each
+    # later decode is credited with the K1 launches that the profiled
+    # replay ran on the card
+    per_replay = sum(n for key, n in replayed.items() if "decode_split" in key)
+    launches["decode_attention"] += (per_replay
+                                     * max(stats["decode_calls"] - 2, 0))
     want = expected_launches(cfg, stats["prefill_calls"],
                              stats["decode_calls"])
     want.update(flash_attention_bwd=0, ssd_scan_bwd=0)   # no graph, no bwd
     log(f"  launches {launches}, expected {want} ({stats['prefill_calls']} "
-        f"prefill calls, {stats['decode_calls']} decode calls)")
+        f"prefill calls, {stats['decode_calls']} decode calls; K1 {per_replay}"
+        f" times in the profiled replay)")
     if launches != want:
         raise SystemExit(f"serve {arch}: kernel launch counts do not match "
                          f"the served work")
     log(f"  {eng.step_count} engine steps in {wall:.2f} s (one prefill and "
-        f"one decode step profiled, the rest timed): prefill "
+        f"two decode steps profiled, the capture untimed, the rest timed): "
+        f"prefill "
         f"{stats['prefill_tokens']} tokens in {stats['prefill_s']:.3f} s = "
         f"{stats['prefill_tokens'] / stats['prefill_s']:.0f} tokens/s; decode "
         f"{stats['decode_steps']} steps, {stats['decode_tokens']} tokens in "

@@ -50,6 +50,9 @@ def _num_sms(index: int) -> int:
 
 
 _TICKETS = {}
+#: ticket buffers that a larger one replaced, never freed: a CUDA graph
+#: captured over one reads it at its address for the graph's life
+_RETIRED = []
 
 
 def _tickets(dev, stream: int, n: int) -> torch.Tensor:
@@ -57,6 +60,8 @@ def _tickets(dev, stream: int, n: int) -> torch.Tensor:
     per (device, stream); the kernel leaves them at zero."""
     buf = _TICKETS.get((dev, stream))
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
         _TICKETS[(dev, stream)] = buf
     return buf

@@ -201,8 +201,10 @@ def embed_tokens(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig,
     # 2.11 masks an addend on meta tensors with a data-dependent op)
     x = shard(F.embedding(tokens, params.tok), "batch", "seq", "embed_act")
     if cfg.name.startswith("gemma"):
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        # by sqrt(d) rounded to x's dtype, held as a Python number: a
+        # tensor made here would be a copy to the device (none may run
+        # while the decode is captured in a CUDA graph)
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     if cfg.pos_emb == "learned" and positions is not None:
         rows = params.pos.shape[0]
         x = x + F.embedding(positions.long().clamp(0, rows - 1), params.pos)

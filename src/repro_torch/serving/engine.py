@@ -27,6 +27,28 @@ for the device) and ``serve.write_slot`` (asynchronous); the decode
 holds ``serve.sample`` (argmax and ``.cpu()``: the host waits).  A
 request's ``ttft_s`` runs from its submit to the return of the step that
 made its first token.
+
+On a CUDA device with parameters that are not placed on a mesh
+(:func:`graphs_decode`), the decode of all ``max_batch`` slots is one
+CUDA graph per engine, so that the host issues one launch a step where
+the eager decode issues thousands.  The engine's first decode runs
+eagerly (it loads the kernel libraries and cuBLAS's handles and
+workspaces), on the engine's own side stream; the second captures the
+graph there (``serve.capture``, once: capture runs nothing) and
+replays it; every later one only replays.  The graph reads the step's
+tokens and positions from a static device buffer that one copy from a
+pinned host buffer fills, and leaves the logits and their argmax in
+static tensors; ``serve.replay`` (``n``: active slots), a sibling of
+``serve.sample`` inside ``serve.decode``, spans that copy and the
+launch.  The graph holds the addresses of the parameters and of the
+cache's leaves: ``decode_step``, ``_write_slot`` and everything else
+update the cache in place, and nothing may reallocate a leaf or a
+parameter after the capture (a prefill written into a slot between two
+replays is what the next replay reads).  ``self._decode`` stays the
+callable the step calls, ``(params, tokens, cache, cur_pos) -> (logits,
+cache)``, on either path; a replay runs on the parameters and cache the
+graph was captured with, whatever it is handed.  Elsewhere (the CPU, a
+placed model) the decode runs eagerly, op by op.
 """
 from __future__ import annotations
 
@@ -41,6 +63,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device, tracing
 from repro_torch.api.registry import resolve
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import is_placed
 from repro_torch.models import model as model_mod
 from repro_torch.models.layers import model_dtype
 
@@ -109,7 +132,20 @@ class ServingEngine:
         self._first: List[ServeRequest] = []   # admitted this step
         self._prefill = functools.partial(model_mod.forward, cfg,
                                           return_cache=True)
-        self._decode = functools.partial(model_mod.decode_step, cfg)
+        self._graph = None          # the decode's CUDA graph, once captured
+        self._graphed = graphs_decode(params, self.device)
+        self._logits: Optional[torch.Tensor] = None
+        self._next: Optional[torch.Tensor] = None   # argmax of the logits
+        if self._graphed:
+            self._decode = self._graph_decode
+            self._stream = torch.cuda.Stream(self.device)
+            # the step's tokens (row 0) and positions (row 1)
+            self._host = torch.zeros((2, max_batch), dtype=torch.int64,
+                                     pin_memory=True)
+            self._inputs = torch.zeros((2, max_batch), dtype=torch.int64,
+                                       device=self.device)
+        else:
+            self._decode = functools.partial(model_mod.decode_step, cfg)
 
     # ---------------------------------------------------------------- intake
     def submit(self, req: ServeRequest) -> None:
@@ -196,11 +232,15 @@ class ServingEngine:
                 if s.req is not None:
                     toks[i, 0] = s.req.tokens[-1]
                     pos[i] = s.pos
-            logits, self.cache = self._decode(
-                self.params, torch.from_numpy(toks).to(self.device),
-                self.cache, torch.from_numpy(pos).to(self.device))
+            toks, pos = torch.from_numpy(toks), torch.from_numpy(pos)
+            if not self._graphed:
+                toks, pos = toks.to(self.device), pos.to(self.device)
+            logits, self.cache = self._decode(self.params, toks, self.cache,
+                                              pos)
             with tracing.span("serve.sample", step):
-                nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+                best = self._next if self._graphed \
+                    else torch.argmax(logits[:, 0, :], dim=-1)
+                nxt = best.cpu().numpy()
         for i, s in enumerate(self.slots):
             if s.req is None:
                 continue
@@ -213,6 +253,52 @@ class ServingEngine:
     def run(self, max_steps: int = 10_000) -> None:
         while self.has_work and self.step_count < max_steps:
             self.step()
+
+    # ------------------------------------------------------- decode graph
+    def _graph_decode(self, params, tokens, cache, cur_pos):
+        """The decode of every slot on the graph path: tokens (B, 1) and
+        cur_pos (B,) on the host go to the static inputs in one copy;
+        the first call runs eagerly, the second captures the graph, and
+        from then on each call replays it.  Returns the static logits
+        (overwritten by the next call) and the cache; the argmax is in
+        ``self._next``."""
+        # the previous step's ``.cpu()`` waited for the last copy out of
+        # the pinned buffer
+        self._host[0] = tokens[:, 0]
+        self._host[1] = cur_pos
+        main = torch.cuda.current_stream(self.device)
+        if self._logits is None:            # the first decode: eager
+            self._inputs.copy_(self._host, non_blocking=True)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                self._logits, self._next = self._decode_inputs(params, cache)
+            main.wait_stream(self._stream)
+            return self._logits, cache
+        if self._graph is None:
+            with tracing.span("serve.capture", self.step_count):
+                self._graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self._graph, stream=self._stream):
+                    self._logits, self._next = self._decode_inputs(params,
+                                                                   cache)
+        with tracing.span("serve.replay", self.step_count, n=self.active):
+            self._inputs.copy_(self._host, non_blocking=True)
+            self._graph.replay()
+        return self._logits, cache
+
+    def _decode_inputs(self, params, cache):
+        """``decode_step`` on the static inputs, and its greedy tokens:
+        what the graph holds."""
+        logits, _ = model_mod.decode_step(
+            self.cfg, params, self._inputs[0][:, None], cache,
+            self._inputs[1].to(torch.int32))
+        return logits, torch.argmax(logits[:, 0, :], dim=-1)
+
+
+def graphs_decode(params, device: torch.device) -> bool:
+    """Whether an engine replays its decode from a CUDA graph: on a CUDA
+    device, with parameters that are not placed (a placed decode runs
+    DTensor's collectives, and stays eager)."""
+    return device.type == "cuda" and not is_placed(next(params.parameters()))
 
 
 def prefill_batch(cfg: ModelConfig, tokens: torch.Tensor):

@@ -368,6 +368,133 @@ def test_new_family_engine_on_card_matches_cpu(dev, arch):
     assert out["cpu"] == out["cuda"]
 
 
+# ------------------------------------------------------- decode graph
+#: a tiny bf16 model of every served family (dense GQA, hybrid, SSM, the
+#: Gemma embedding scale, VLM, MoE, MoE with MLA, audio)
+GRAPH_ARCHS = ["starcoder2-7b", "zamba2-7b", "mamba2-370m", "gemma-7b",
+               "pixtral-12b", "llama4-scout-17b-a16e", "deepseek-v3-671b",
+               "whisper-tiny"]
+
+
+def graph_config(arch):
+    """The smoke config of ``arch`` in bf16: StarCoder2 with 2 KV heads
+    (a GQA group of 2, K1's grouped path), Zamba2 at 4 layers (the
+    shared block after each of two groups), DeepSeek-V3 at the full
+    model's MLA widths (K2 does not take the reduced MLA head dim)."""
+    cfg = reduce_for_smoke(get_arch(arch))
+    if arch == "starcoder2-7b":
+        cfg = dataclasses.replace(cfg, num_kv_heads=2)
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    if cfg.use_mla:
+        cfg = dataclasses.replace(cfg, mla=get_arch(arch).mla)
+    return cfg
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_decode_graph_replays_the_eager_decode_bit_for_bit(dev, arch,
+                                                           monkeypatch):
+    """The engine's decode, eager once, captured once, then replayed from
+    its CUDA graph, against the eager ``decode_step`` on a clone of the
+    same cache and inputs at every one of 40-odd steps: the same logits
+    and the same cache bit for bit, and the same tokens.  Requests come
+    in three waves with different output lengths, so that slots finish,
+    sit idle, and take prefills between two replays."""
+    from repro_torch import tracing
+    ring = tracing.Ring()
+    monkeypatch.setattr(tracing, "RING", ring)
+    cfg = graph_config(arch)
+    lm = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    eng = ServingEngine(cfg, lm, max_batch=3, max_seq=96, scheduler="fcfs",
+                        device=dev)
+    assert eng._graphed
+    reqs = make_requests(cfg, 8, max_new=1, prompt_len=(2, 40), seed=3)
+    for r, n in zip(reqs, (12, 30, 5, 20, 8, 25, 6, 15)):
+        r.max_new_tokens = r.output_tokens = n
+    real, decoded = eng._decode, []
+
+    def check(params, tokens, cache, cur_pos):
+        ref = clone_tree(cache)
+        want, ref = model.decode_step(cfg, params, tokens.to(dev), ref,
+                                      cur_pos.to(dev))
+        got, cache = real(params, tokens, cache, cur_pos)
+        assert torch.equal(got, want), len(decoded)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(cache),
+                                                     leaves(ref)))
+        owners = [sl.req for sl in eng.slots]
+        decoded.append((owners, torch.argmax(want[:, 0], -1).tolist()))
+        return got, cache
+
+    eng._decode = check
+    waves = {0: reqs[:4], 15: reqs[4:7], 30: reqs[7:]}
+    while eng.has_work or eng.step_count < max(waves):
+        for r in waves.get(eng.step_count, []):
+            eng.submit(r)
+        n = len(decoded)
+        eng.step()
+        if len(decoded) > n:
+            owners, best = decoded[-1]
+            for i, r in enumerate(owners):
+                if r is not None:
+                    assert r.tokens[-1] == best[i], (eng.step_count, i)
+    assert len(decoded) >= 40
+    assert all(r.done_step is not None
+               and len(r.tokens) == r.max_new_tokens for r in reqs)
+    assert any(None in owners for owners, _ in decoded[2:])
+    names = [s.name for s in tracing.spans()]
+    assert names.count("serve.capture") == 1
+    assert names.count("serve.decode") == len(decoded)
+    # one replay in every decode but the first (the eager warm-up),
+    # beside the decode's sample
+    spans = tracing.spans()
+    decodes = {s.seq for s in spans if s.name == "serve.decode"}
+    replays = [s for s in spans if s.name == "serve.replay"]
+    samples = [s for s in spans if s.name == "serve.sample"]
+    assert len(replays) == len(decoded) - 1
+    assert {s.parent_seq for s in replays} \
+        == decodes - {min(decodes)}
+    assert {s.parent_seq for s in samples} == decodes
+
+
+@pytest.mark.cuda
+def test_the_profiler_sees_the_kernels_a_replay_runs(dev):
+    """Replays of a graph captured before the profiler started show their
+    kernels, K1 and the GEMMs among them, in the device trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = graph_config("starcoder2-7b")
+    lm = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    eng = ServingEngine(cfg, lm, max_batch=3, max_seq=96, device=dev)
+    for r in make_requests(cfg, 3, max_new=8, prompt_len=(2, 40)):
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    assert eng._graph is not None
+    launched = tdec.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    assert tdec.LAUNCHES == launched
+    kernels = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    assert sum("decode_split_mma" in k for k in kernels) == cfg.num_layers
+    assert len(kernels) > 20 * cfg.num_layers, kernels
+
+
 # ------------------------------------------------------------ ARMA fit
 def arma_inputs(dev, rows, length, k, warm, seed):
     """Rows as the forecast engine fits them (a differenced series with

@@ -102,6 +102,21 @@ def test_spans_name_nest_and_count_each_step(arch, ring):
     assert ring.dropped == 0 and not ring.open
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_the_cpu_engine_captures_no_decode_graph(arch, ring):
+    """On the CPU the decode runs op by op: no ``serve.capture``, no
+    ``serve.replay``, no graph, and the step's decode is ``decode_step``
+    itself."""
+    eng, reqs = engine(arch)
+    assert not eng._graphed
+    assert eng._decode.func is model_mod.decode_step
+    eng.run()
+    names = Counter(s.name for s in tracing.spans())
+    assert names["serve.decode"] > 0
+    assert names["serve.capture"] == names["serve.replay"] == 0
+    assert eng._graph is None and all(r.done_step is not None for r in reqs)
+
+
 def test_the_ring_is_bounded_and_counts_what_it_drops(monkeypatch):
     small = tracing.Ring(capacity=6)
     monkeypatch.setattr(tracing, "RING", small)
