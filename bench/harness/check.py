@@ -20,12 +20,12 @@ does, to set the limit.
 from __future__ import annotations
 
 import dataclasses
-import importlib
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from bench.harness import spec
 from bench.harness import weights as weights_mod
 from bench.reference import precision
 
@@ -67,14 +67,14 @@ def gaps(ref: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return ref.max(-1).values - ref.gather(-1, tokens[:, None])[:, 0]
 
 
-def compare(model: Dict, seed: int, requests: List[Served], device,
+def compare(cell: spec.Cell, seed: int, requests: List[Served], device,
             control: bool = False) -> Result:
-    """Run the reference (and, with ``control``, the fp8 control) over
-    ``requests`` and return the widest gaps."""
+    """Run the cell's reference (and, with ``control``, the fp8 control)
+    over ``requests`` and return the widest gaps."""
     if not requests:
         return Result(0, 0, float("nan"))
-    family = importlib.import_module(f"bench.reference.{model['family']}")
-    w = weights_mod.make(model, seed, device)
+    model, reference = cell.config["model"], cell.reference
+    w = weights_mod.make(cell.family.leaves(model), seed, device)
     seqs = [torch.as_tensor(np.concatenate([r.prompt, r.tokens[:-1]]),
                             dtype=torch.long, device=device)
             for r in requests]
@@ -82,12 +82,12 @@ def compare(model: Dict, seed: int, requests: List[Served], device,
     served = torch.as_tensor(np.concatenate([r.tokens for r in requests]),
                              dtype=torch.long, device=device)
     with precision.no_tf32():
-        ref = torch.cat(family.forward(w, model, seqs, firsts,
+        ref = torch.cat(reference.forward(w, model, seqs, firsts,
                                        precision.exact))
         out = Result(len(requests), int(served.numel()),
                      float(gaps(ref, served).max()))
         if control:
-            low = torch.cat(family.forward(w, model, seqs, firsts,
+            low = torch.cat(reference.forward(w, model, seqs, firsts,
                                            precision.fp8))
             out.control_gap = float(gaps(ref, low.argmax(-1)).max())
     return out

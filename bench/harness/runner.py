@@ -24,6 +24,7 @@ import gc
 import math
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 from bench.harness import check, serve, spec, traffic
@@ -40,6 +41,7 @@ class Run:
     """What a metric reader reads."""
 
     model: Dict
+    family: ModuleType   # bench/families/<family>.py
     slots: int
     setup_s: float
     window: serve.Window
@@ -63,7 +65,6 @@ def start(cell: spec.Cell, seed: int, device,
     ended."""
     import torch
 
-    from repro_torch.configs.base import ModelConfig
     from repro_torch.models import model as model_mod
     from repro_torch.serving.engine import ServeRequest, ServingEngine
 
@@ -76,9 +77,10 @@ def start(cell: spec.Cell, seed: int, device,
         _build.build_all(eng["kernels"])
         torch.cuda.reset_peak_memory_stats()
     marks["build"] = time.perf_counter()
-    cfg = ModelConfig(**m)
+    cfg = cell.family.config(m)
     module = model_mod.module(cfg, "meta")
-    weights_mod.load(module, weights_mod.make(m, seed, device))
+    weights_mod.load(module,
+                     weights_mod.make(cell.family.leaves(m), seed, device))
     engine = ServingEngine(cfg, module, max_batch=mix["slots"],
                            max_seq=eng["max_seq"], scheduler=eng["scheduler"],
                            device=device)
@@ -165,7 +167,7 @@ def execute(root: Path, cell: spec.Cell, seed: int, seconds: float,
     if cuda:
         torch.cuda.empty_cache()
 
-    run = Run(m, mix["slots"], setup_s, window, traced, tr)
+    run = Run(m, cell.family, mix["slots"], setup_s, window, traced, tr)
     metrics = {}
     for mt in (cell.per_layer if trace else cell.end_to_end):
         value = spec.reader(root, mt["name"])(run)
@@ -174,7 +176,7 @@ def execute(root: Path, cell: spec.Cell, seed: int, seconds: float,
 
     sample = check.sample(finished, seed, mix["check_tokens"])
     t_check = time.perf_counter()
-    res = check.compare(m, seed, sample, device, control=control)
+    res = check.compare(cell, seed, sample, device, control=control)
     check_s = time.perf_counter() - t_check
     limit = cell.limits["max_logit_gap"]
     correct = bool(sample) and not math.isnan(res.max_gap) \

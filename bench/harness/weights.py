@@ -2,9 +2,10 @@
 type they are served in, in two large calls (one buffer in the model
 dtype, one in float32), then viewed leaf by leaf and scaled in place.
 
-The leaves are named and shaped from the configuration file's
-``model`` section alone, in the layout the port's parameter tree has
-(weights ``(in, out)``, applied as ``x @ w``).  :func:`load` hands them
+The leaves are named and shaped by the model's family module
+(``bench/families/<family>.py``, ``leaves(m)``) from the configuration
+file's ``model`` section alone, in the layout the port's parameter tree
+has (weights ``(in, out)``, applied as ``x @ w``).  :func:`load` hands them
 to the port's module and raises if the port's tree differs.  The plain
 references read the same dictionary; the check draws it again from the
 seed after the program is freed, so the reference takes nothing that
@@ -22,68 +23,21 @@ from bench.harness.shapes import padded_vocab
 Leaf = Tuple[str, Tuple[int, ...], str, str]   # name, shape, dtype, init
 
 
-def _norm(prefix: str, d: int, layernorm: bool) -> List[Leaf]:
+def norm(prefix: str, d: int, layernorm: bool) -> List[Leaf]:
+    """A norm's scale, and its shift for a LayerNorm."""
     out = [(f"{prefix}.scale", (d,), "float32", "scale")]
     if layernorm:
         out.append((f"{prefix}.bias", (d,), "float32", "shift"))
     return out
 
 
-def _attn_block(prefix: str, m: Dict) -> List[Leaf]:
-    d, H, Hkv, hd = m["d_model"], m["num_heads"], m["num_kv_heads"], \
-        m["head_dim"]
-    ln, dt = m["norm"] == "layernorm", m["dtype"]
-    out = _norm(f"{prefix}.norm1", d, ln)
-    out += [(f"{prefix}.attn.wq", (d, H * hd), dt, "dense"),
-            (f"{prefix}.attn.wk", (d, Hkv * hd), dt, "dense"),
-            (f"{prefix}.attn.wv", (d, Hkv * hd), dt, "dense"),
-            (f"{prefix}.attn.wo", (H * hd, d), dt, "dense")]
-    if m["use_qkv_bias"]:
-        out += [(f"{prefix}.attn.bq", (H * hd,), dt, "bias"),
-                (f"{prefix}.attn.bk", (Hkv * hd,), dt, "bias"),
-                (f"{prefix}.attn.bv", (Hkv * hd,), dt, "bias")]
-    out += _norm(f"{prefix}.norm2", d, ln)
-    f = m["d_ff"]
-    out += [(f"{prefix}.mlp.wi", (d, f), dt, "dense"),
-            (f"{prefix}.mlp.wo", (f, d), dt, "dense")]
-    if m["act"] in ("silu", "geglu"):
-        out.append((f"{prefix}.mlp.wg", (d, f), dt, "dense"))
-    return out
-
-
-def _ssm_layer(prefix: str, m: Dict) -> List[Leaf]:
-    d, dt = m["d_model"], m["dtype"]
-    di = m["ssm_expand"] * d
-    N, H = m["ssm_state"], di // m["ssm_headdim"]
-    return [(f"{prefix}.norm.scale", (d,), "float32", "scale"),
-            (f"{prefix}.mixer.in_proj", (d, 2 * di + 2 * N + H), dt, "dense"),
-            (f"{prefix}.mixer.conv_w", (4, di + 2 * N), dt, "conv"),
-            (f"{prefix}.mixer.conv_b", (di + 2 * N,), dt, "bias"),
-            (f"{prefix}.mixer.A_log", (H,), "float32", "a_log"),
-            (f"{prefix}.mixer.D", (H,), "float32", "scale"),
-            (f"{prefix}.mixer.dt_bias", (H,), "float32", "dt_bias"),
-            (f"{prefix}.mixer.gate_norm", (di,), "float32", "scale"),
-            (f"{prefix}.mixer.out_proj", (di, d), dt, "dense")]
-
-
-def leaves(m: Dict) -> List[Leaf]:
-    """Every leaf of the model that ``m`` (a config's ``model`` section)
-    describes: dense (pre-norm attention + MLP blocks) or hybrid
-    (Mamba2 layers with one shared attention block)."""
+def embedding(m: Dict) -> List[Leaf]:
+    """The token embedding, the untied head over the padded vocabulary and
+    the final norm: what a decoder with an untied head draws first."""
     d, V, dt = m["d_model"], padded_vocab(m), m["dtype"]
-    out: List[Leaf] = [("embed.tok", (V, d), dt, "embed"),
-                       ("embed.head", (d, V), dt, "dense")]
-    out += _norm("final_norm", d, m["norm"] == "layernorm")
-    if m["family"] == "dense":
-        for i in range(m["num_layers"]):
-            out += _attn_block(f"dense_layers.{i}", m)
-    elif m["family"] == "hybrid":
-        for i in range(m["num_layers"]):
-            out += _ssm_layer(f"layers.{i}", m)
-        out += _attn_block("shared_attn", m)
-    else:
-        raise ValueError(f"no weights for family {m['family']!r}")
-    return out
+    return [("embed.tok", (V, d), dt, "embed"),
+            ("embed.head", (d, V), dt, "dense")] \
+        + norm("final_norm", d, m["norm"] == "layernorm")
 
 
 @torch.no_grad()
@@ -111,10 +65,10 @@ def _init(w: torch.Tensor, shape, kind: str) -> None:
 
 
 @torch.no_grad()
-def make(m: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The weights of ``m`` from ``seed``: one normal draw per dtype over
-    a flat buffer on ``device``, then each leaf a view of it."""
-    spec = leaves(m)
+def make(spec: List[Leaf], seed: int, device) -> Dict[str, torch.Tensor]:
+    """The weights of the leaves ``spec`` (a family's ``leaves(m)``) from
+    ``seed``: one normal draw per dtype over a flat buffer on ``device``,
+    then each leaf a view of it, in the order of ``spec``."""
     gen = torch.Generator(device=device).manual_seed(seed % 2**63)
     out: Dict[str, torch.Tensor] = {}
     for dtype in sorted({s[2] for s in spec}):

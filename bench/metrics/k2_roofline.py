@@ -4,24 +4,14 @@ roofline (%): the least time the card could take for the causal
 attention of every prompt those steps admitted, over the summed device
 time of ``flash_fwd_*``.
 
-One causal prefill of S tokens, per attention application: 2 H hd
-S (S + 1) FLOPs (each query against the keys up to it, scores and
-values); q, k, v read and the output written once, with the query and
-key positions (int32).
+What one causal prefill needs is the model's family module's ``k2_work``
+(``bench/families/<family>.py``): each query against the keys up to it,
+scores and values; q, k, v read and the output written once, with the
+positions, at the family's q/k and v head widths.
 """
-from bench.harness import peaks, shapes
+from bench.harness import peaks
 
 KERNELS = ("flash_fwd",)
-
-
-def k2_work(m, S):
-    """(flops, bytes) of one prompt of ``S`` tokens."""
-    H, Hkv, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
-    isz = shapes.itemsize(m)
-    flops = 2 * H * hd * S * (S + 1)
-    nbytes = (2 * H + 2 * Hkv) * S * hd * isz + 2 * S * 4
-    n = shapes.attention_layers(m)
-    return n * flops, n * nbytes
 
 
 def read(run):
@@ -30,7 +20,8 @@ def read(run):
     t = run.trace.seconds(*KERNELS)
     if t <= 0:
         return None
-    work = [k2_work(run.model, S) for s in run.traced for S in s.prompts]
+    work = [run.family.k2_work(run.model, S)
+            for s in run.traced for S in s.prompts]
     if not work:
         return None
     bound = peaks.bound_s(sum(f for f, _ in work), sum(b for _, b in work))

@@ -5,6 +5,7 @@ import types
 
 import pytest
 
+from bench.families import dense, hybrid
 from bench.harness import peaks, serve, spec, trace
 from bench.tests.tiny import BENCH
 
@@ -33,7 +34,7 @@ def test_k1_work_by_hand():
     # 2 layers; slots 3, two active at positions 5 and 9, one idle (1 key)
     # keys = 6 + 10 + 1 = 17; per key K and V: 2*2*4*2 bytes + 4 (pos) = 36
     # per slot q and out: 2*4*4*2 + 4 = 68
-    flops, nbytes = module("k1_roofline").k1_work(M, [5, 9], 3)
+    flops, nbytes = dense.k1_work(M, [5, 9], 3)
     assert nbytes == 2 * (17 * 36 + 3 * 68)
     assert flops == 2 * 17 * 4 * 4 * 4
 
@@ -41,35 +42,36 @@ def test_k1_work_by_hand():
 def test_k2_work_by_hand():
     # S = 3: 2*H*hd*S*(S+1) = 2*4*4*3*4 = 384 flops per layer
     # q, k, v, o: (2*4 + 2*2)*3*4*2 = 288 bytes, positions 2*3*4 = 24
-    flops, nbytes = module("k2_roofline").k2_work(M, 3)
+    flops, nbytes = dense.k2_work(M, 3)
     assert flops == 2 * 384
     assert nbytes == 2 * (288 + 24)
 
 
 def test_attention_applications_of_the_hybrid():
-    from bench.harness import shapes
-    assert shapes.attention_layers(HY) == 3       # after 2, 4 and the last
-    assert shapes.attention_layers(M) == 2
+    assert hybrid.attention_layers(HY) == 3       # after 2, 4 and the last
+    assert dense.attention_layers(M) == 2
 
 
 def test_mfu_weights_and_flops_by_hand():
     mfu = module("mfu")
     # per layer: q, o 8*16 each, k, v 8*8 each = 384; mlp 2*8*16 = 256;
     # head 8*64 = 512 (vocab padded to 64)
-    assert mfu.matmul_weights(M) == 2 * (384 + 256) + 512
-    w = mfu.matmul_weights(M)
+    assert dense.matmul_weights(M) == 2 * (384 + 256) + 512
+    w = dense.matmul_weights(M)
     # one prefill of 3 tokens and one decode at position 5
     want = 2 * w * 3 + 2 * 2 * 4 * 4 * 3 * 4 + 2 * w + 2 * 4 * 4 * 4 * 6
-    assert mfu.step_flops(M, [3], [5]) == want
+    assert mfu.step_flops(dense, M, [3], [5]) == want
     # hybrid: ssm 8*(32+8+4) + 16*8 = 480 per layer; 3 attention blocks
     # of 8*16*2 + 8*16*2 = 512 and gated mlp 3*8*16 = 384
-    assert mfu.matmul_weights(HY) == 5 * 480 + 3 * (512 + 384) + 512
+    assert hybrid.matmul_weights(HY) == 5 * 480 + 3 * (512 + 384) + 512
 
 
 def _run(steps, traced=(), tr=None, slots=4, model=M):
     w = serve.Window(t0=0.0, t_end=10.0, seconds=10.0, steps=list(steps),
                      requests=[], iw=[], generator_late_s=0.0, drain_end=10.0)
-    return types.SimpleNamespace(model=model, slots=slots, setup_s=1.0,
+    return types.SimpleNamespace(model=model,
+                                 family=hybrid if model is HY else dense,
+                                 slots=slots, setup_s=1.0,
                                  window=w, traced=list(traced), trace=tr)
 
 
@@ -92,17 +94,17 @@ def test_device_metrics_by_hand():
     traced = [serve.StepRec(0.0, 1.0, [3], [5, 9])]
     run = _run([], traced, tr, slots=3)
     assert reader("device_idle")(run) == pytest.approx(20.0)
-    f, b = module("k2_roofline").k2_work(M, 3)
+    f, b = dense.k2_work(M, 3)
     assert reader("k2_roofline")(run) == pytest.approx(
         100 * peaks.bound_s(f, b) / 2e-6)
-    f, b = module("k1_roofline").k1_work(M, [5, 9], 3)
+    f, b = dense.k1_work(M, [5, 9], 3)
     assert reader("k1_roofline")(run) == pytest.approx(
         100 * peaks.bound_s(f, b) / 2e-6)
     # mfu reads the window, not the traced stretch: 10 s of these steps
     steps = [serve.StepRec(0.0, 4.0, [3], [5, 9]),
              serve.StepRec(4.0, 9.0, [], [6, 10])]
-    flops = module("mfu").step_flops(M, [3], [5, 9]) \
-        + module("mfu").step_flops(M, [], [6, 10])
+    flops = module("mfu").step_flops(dense, M, [3], [5, 9]) \
+        + module("mfu").step_flops(dense, M, [], [6, 10])
     assert reader("mfu")(_run(steps, traced, tr)) == pytest.approx(
         100 * flops / (10.0 * peaks.BF16_FLOPS))
     assert reader("mfu")(run) is None
@@ -204,12 +206,12 @@ def test_only_the_longest_gaps_are_named(monkeypatch):
 
 
 def test_roofline_shares_cannot_pass_100_when_time_is_the_bound():
-    f, b = module("k2_roofline").k2_work(M, 3)
+    f, b = dense.k2_work(M, 3)
     tr = trace.Trace([("flash_fwd", peaks.bound_s(f, b))], 1.0, 1.0, {})
     run = _run([], [serve.StepRec(0, 1, [3], [])], tr)
     assert reader("k2_roofline")(run) == pytest.approx(100.0)
     # the window at the card's peak for its whole 10 s reads 100%
-    flops = module("mfu").step_flops(M, [3], [])
+    flops = module("mfu").step_flops(dense, M, [3], [])
     full = _run([serve.StepRec(0.0, 10.0, [3], [])], model=M)
     full.window.t_end = flops / peaks.BF16_FLOPS
     assert reader("mfu")(full) == pytest.approx(100.0)

@@ -6,6 +6,8 @@ import math
 import pytest
 import torch
 
+from bench.families import dense as dense_family
+from bench.families import hybrid as hybrid_family
 from bench.harness import weights
 from bench.reference import dense, hybrid, precision
 from bench.tests.tiny import DENSE, HYBRID
@@ -76,7 +78,8 @@ def test_reference_agrees_with_the_port_in_float32(m):
     m = dict(m, dtype="float32")
     cfg = ModelConfig(**m)
     module = model_mod.module(cfg, "meta")
-    w = weights.make(m, 5, "cpu")
+    leaves = (dense_family if m["family"] == "dense" else hybrid_family).leaves
+    w = weights.make(leaves(m), 5, "cpu")
     weights.load(module, w)
     tokens = torch.randint(0, m["vocab_size"], (1, 40),
                            generator=torch.Generator().manual_seed(1))
@@ -88,14 +91,14 @@ def test_reference_agrees_with_the_port_in_float32(m):
 
 
 def test_weights_are_seeded_and_shaped_from_the_config():
-    a = weights.make(DENSE, 3, "cpu")
-    b = weights.make(DENSE, 3, "cpu")
-    c = weights.make(DENSE, 4, "cpu")
+    a = weights.make(dense_family.leaves(DENSE), 3, "cpu")
+    b = weights.make(dense_family.leaves(DENSE), 3, "cpu")
+    c = weights.make(dense_family.leaves(DENSE), 4, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["embed.head"], c["embed.head"])
     assert a["embed.tok"].shape == (256, 64)          # 200 padded to 64s
     assert a["dense_layers.1.attn.wk"].shape == (64, 32)
-    h = weights.make(HYBRID, 3, "cpu")
+    h = weights.make(hybrid_family.leaves(HYBRID), 3, "cpu")
     assert torch.allclose(h["layers.0.mixer.A_log"],
                           torch.log(torch.arange(1.0, 9.0)))
     dt = torch.nn.functional.softplus(h["layers.0.mixer.dt_bias"])
@@ -108,4 +111,5 @@ def test_load_refuses_another_tree():
 
     module = model_mod.module(ModelConfig(**DENSE), "meta")
     with pytest.raises(ValueError):
-        weights.load(module, weights.make(dict(DENSE, d_ff=64), 0, "cpu"))
+        weights.load(module, weights.make(
+            dense_family.leaves(dict(DENSE, d_ff=64)), 0, "cpu"))
